@@ -1,0 +1,38 @@
+"""Config registry: ``get_config(arch_id)`` / ``get_smoke(arch_id)``.
+
+Only the dense ``qwen3-8b`` is registered so far; the other families of the
+reference come with later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ArchConfig, QuantConfig, config_from_dict, config_to_dict
+
+_MODULES: Dict[str, str] = {"qwen3-8b": "qwen3_8b"}
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def _load(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str, quant: QuantConfig | None = None) -> ArchConfig:
+    cfg = _load(arch).full()
+    return cfg if quant is None else dataclasses.replace(cfg, quant=quant)
+
+
+def get_smoke(arch: str, quant: QuantConfig | None = None) -> ArchConfig:
+    cfg = _load(arch).smoke()
+    return cfg if quant is None else dataclasses.replace(cfg, quant=quant)
+
+
+__all__ = [
+    "ARCH_IDS", "ArchConfig", "QuantConfig", "config_from_dict",
+    "config_to_dict", "get_config", "get_smoke",
+]

@@ -1,0 +1,70 @@
+"""Parameters of the JAX package -> parameters of the port.
+
+``params_from_jax(tree)`` takes the reference's fp parameter tree or its
+PTQ tree (numpy arrays or anything ``numpy.asarray`` accepts), with blocks
+stacked on a leading layer axis, and returns the port's tree: ``blocks`` as
+a list of per-layer dicts, QTensors rebuilt from ``packed`` / ``scale_m`` /
+``scale_e`` (uint32 words viewed as int32 -- the same bytes).  The
+reference's QTensor is read by its fields alone, so nothing of the JAX
+package is imported.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.quantizer import QTensor
+from repro_torch.device import resolve_device
+
+
+def _is_qtensor(x) -> bool:
+    return all(hasattr(x, a) for a in ("packed", "scale_m", "scale_e", "group_size", "shape"))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _qtensor(q, device, index=None) -> QTensor:
+    pick = (lambda a: np.asarray(a)) if index is None else (lambda a: np.asarray(a)[index])
+    return QTensor(
+        _tensor(pick(q.packed), device), _tensor(pick(q.scale_m), device),
+        _tensor(pick(q.scale_e), device).to(torch.int32).reshape(()),
+        int(q.bits), int(q.group_size), tuple(int(d) for d in q.shape), str(q.fmt),
+    )
+
+
+def _convert(node, device, index=None) -> Any:
+    if _is_qtensor(node):
+        return _qtensor(node, device, index)
+    if isinstance(node, dict):
+        return {k: _convert(v, device, index) for k, v in node.items()}
+    a = np.asarray(node)
+    return _tensor(a if index is None else a[index], device)
+
+
+def _n_layers(node) -> int:
+    if _is_qtensor(node):
+        return np.asarray(node.scale_e).shape[0]
+    if isinstance(node, dict):
+        return _n_layers(next(iter(node.values())))
+    return np.asarray(node).shape[0]
+
+
+def params_from_jax(tree, device=None):
+    """Convert the reference's parameter tree; ``device`` defaults to the card."""
+    dev = resolve_device(device)
+    out = {}
+    for key, val in tree.items():
+        if key == "blocks":
+            out[key] = [_convert(val, dev, i) for i in range(_n_layers(val))]
+        else:
+            out[key] = _convert(val, dev)
+    return out

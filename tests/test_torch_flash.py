@@ -1,0 +1,100 @@
+"""Port vs reference: flash attention over a kv_bf16 cache.
+
+The port's ``flash_attend`` / ``flash_decode`` on CPU tensors (the kernel's
+plain version) against the reference's ``flash_attend`` (interpret mode)
+and against the port's own ``_attend_dense`` oracle, at atol 5e-5 -- the
+reference's own tolerance (``tests/test_flash_prefill.py``): the two sum
+the scores in different orders.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_prefill import flash_attend as jflash
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_prefill import flash_attend, pick_kv_block, pick_q_block
+from repro_torch.models.attention import _attend_dense, _mask_bias
+
+
+def _case(b, t, kh, g, hd, s, starts, window, seed=0):
+    rng = np.random.default_rng(seed)
+    k = (rng.normal(size=(b, t, kh, hd)) * 0.5).astype(np.float32)
+    v = (rng.normal(size=(b, t, kh, hd)) * 0.5).astype(np.float32)
+    q = rng.normal(size=(b, s, kh, g, hd)).astype(np.float32)
+    starts = np.asarray(starts, np.int32).reshape(b, 1)
+    valid = starts + s
+    win = np.full((1, 1), 2**30 if window is None else window, np.int32)
+    kt = torch.from_numpy(k).to(torch.bfloat16)  # the cache stores bf16
+    vt = torch.from_numpy(v).to(torch.bfloat16)
+    kj = jnp.asarray(k).astype(jnp.bfloat16)
+    vj = jnp.asarray(v).astype(jnp.bfloat16)
+    return q, kt, vt, kj, vj, starts, valid, win
+
+
+def _port(q, kt, vt, starts, valid, win, **kw):
+    return flash_attend(
+        torch.from_numpy(q), kt, vt, None, None, torch.from_numpy(starts),
+        torch.from_numpy(valid), torch.from_numpy(win), fmt="kv_bf16", **kw,
+    ).numpy()
+
+
+def _dense(q, kt, vt, starts, valid, window):
+    b, s = q.shape[:2]
+    t = kt.shape[1]
+    q_pos = torch.from_numpy(starts) + torch.arange(s)[None]
+    bias = _mask_bias(q_pos, torch.arange(t), True, window, torch.from_numpy(valid[:, 0]))
+    return _attend_dense(torch.from_numpy(q), kt, vt, bias[:, None, None]).numpy()
+
+
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("kh,g", [(2, 2), (4, 1)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("window", [None, 8], ids=["global", "window"])
+def test_flash_attend_matches_reference(s, kh, g, window):
+    b, t, hd = 3, 64, 16
+    starts = [0, 13, 40][:b]  # ragged fill levels
+    q, kt, vt, kj, vj, st, valid, win = _case(b, t, kh, g, hd, s, starts, window)
+    got = _port(q, kt, vt, st, valid, win)
+    want = np.asarray(jflash(
+        jnp.asarray(q), kj, vj, None, None, jnp.asarray(st), jnp.asarray(valid),
+        jnp.asarray(win), fmt="kv_bf16", interpret=True,
+    ))
+    np.testing.assert_allclose(got, want, atol=5e-5)
+    np.testing.assert_allclose(got, _dense(q, kt, vt, st, valid, window), atol=5e-5)
+
+
+def test_flash_attend_small_blocks_many_kv_tiles():
+    q, kt, vt, kj, vj, st, valid, win = _case(2, 128, 2, 2, 8, 16, [37, 90], None, seed=2)
+    got = _port(q, kt, vt, st, valid, win, block_q=4, block_k=16)
+    want = np.asarray(jflash(
+        jnp.asarray(q), kj, vj, None, None, jnp.asarray(st), jnp.asarray(valid),
+        jnp.asarray(win), fmt="kv_bf16", block_q=4, block_k=16, interpret=True,
+    ))
+    np.testing.assert_allclose(got, want, atol=5e-5)
+
+
+def test_flash_decode_entry():
+    q, kt, vt, kj, vj, st, valid, win = _case(4, 32, 2, 4, 16, 1, [0, 5, 17, 31], None, seed=3)
+    got = flash_decode(
+        torch.from_numpy(q[:, 0]), kt, vt, None, None, torch.from_numpy(st),
+        torch.from_numpy(valid), torch.from_numpy(win), fmt="kv_bf16",
+    ).numpy()
+    np.testing.assert_allclose(got, _port(q, kt, vt, st, valid, win)[:, 0], atol=0)
+    np.testing.assert_allclose(got, _dense(q, kt, vt, st, valid, None)[:, 0], atol=5e-5)
+
+
+def test_unported_formats_raise():
+    q, kt, vt, _, _, st, valid, win = _case(1, 32, 1, 1, 8, 1, [3], None)
+    with pytest.raises(NotImplementedError):
+        flash_attend(torch.from_numpy(q), kt, vt, None, None, torch.from_numpy(st),
+                     torch.from_numpy(valid), torch.from_numpy(win), fmt="kv_int8")
+
+
+def test_block_pickers_match_reference():
+    from repro.kernels.flash_prefill import pick_kv_block as jkv
+    from repro.kernels.flash_prefill import pick_q_block as jq
+
+    for s, g in [(64, 1), (64, 2), (8, 16), (13, 2), (1, 4), (7, 16)]:
+        assert pick_q_block(s, g) == jq(s, g)
+    for t in (256, 2048, 96, 13):
+        assert pick_kv_block(t, "kv_bf16") == jkv(t, "kv_bf16")
