@@ -7,17 +7,34 @@ Phases, in order; any failure exits non-zero:
   1. card     -- print the card's name and power limit; no CUDA -> exit 1
   2. build    -- compile every kernel under src/repro_torch/csrc (one nvcc
                  per source, all at once) into build/kernels
-  3. parity   -- each kernel against its plain PyTorch version on the card,
-                 at the main path's shapes
+  3. parity   -- each kernel and mode against its plain PyTorch version on
+                 the card, at the main paths' shapes: qdense at M = 4 (0
+                 ulps) and ternary at M = 17, 64, 256 (0 ulps); flash
+                 kv_bf16 at decode; kv_int8 and kv_mx at decode (B 4,
+                 T 1024); all three formats at a prefill chunk (S 256 from
+                 512, T 1024) and the in-chunk tail (S = T = 256), 5e-5
   4. main     -- serve the full-width qwen3-8b (ternary PTQ, group 64, all
                  36 layers, bf16, random weights from a seeded generator,
                  quantized on the card one site at a time) through the
-                 lockstep engine: 4 slots, 8 requests, 16-token prompts,
-                 16 greedy tokens each; every launch count must be > 0;
-                 then 8 more ticks under torch.profiler (device busy
-                 share, time by kernel); a 2-layer full-width twin checks
-                 the kernel path against the plain path over 6 steps
-  5. timings  -- kernel, plain version, library call (a yardstick the port
+                 lockstep engine over kv_bf16: 4 slots, 8 requests,
+                 16-token prompts, 16 greedy tokens each; every launch
+                 count must be > 0; then 8 more ticks under torch.profiler
+                 (device busy share, time by kernel); a 2-layer full-width
+                 twin checks the kernel path against the plain path over 6
+                 steps
+  5. staged   -- the same model, all 36 layers, through the StagedEngine
+                 over kv_int8 with flash prefill and decode: 4 slots,
+                 max_len 1024, 256-token prefill chunks, decode priority,
+                 8 requests with prompts of 1 to 900 tokens, 16 greedy
+                 tokens each; every kernel mode of the path must launch;
+                 generate ticks and one 256-token chunk under
+                 torch.profiler; then the same traffic at 4 layers over
+                 kv_mx and over kv_bf16; 2-layer full-width twins check
+                 prefill_chunk at ragged starts and 4 decode steps, kernel
+                 path against plain path, for kv_int8 and kv_mx (float32:
+                 logits 5e-3, equal argmax; the PTQ model: qdense leg
+                 bit-identical, picks within the observed difference)
+  6. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
 
 The last two lines are the `kernels` JSON and the device JSON.
@@ -39,7 +56,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (the flash kernel's arithmetic)
 SEED = 0
 ARCH = "qwen3-8b"
 GROUP = 64
@@ -53,6 +70,23 @@ QDENSE_SITES = [  # (name, K, N, decode, act) -- one layer's sites, then lm_head
     ("down", 12288, 4096, "ternary", None), ("lm_head", 4096, 152064, "int8", None),
 ]
 M_ROWS = SLOTS  # rows per decode-tick projection
+PREFILL_ROWS = (17, 64, 256)  # prefill-chunk projections: row blocks past the first
+# the staged path: 4 slots over a 1024-token kv_int8 cache, 256-token chunks;
+# prompt lengths cross every chunk boundary and the 32-token kv_mx block
+STAGED_SLOTS, STAGED_MAX_LEN, STAGED_CHUNK = 4, 1024, 256
+STAGED_PROMPTS = [1, 31, 255, 256, 257, 513, 700, 900]
+SMALL_DEPTH = 4  # layers of the kv_mx and kv_bf16 staged runs
+FLASH_DECODE = dict(b=4, t=1024, kh=8, g=4, hd=128)  # the staged decode tick
+FLASH_DECODE_VALID = [1, 300, 777, 1024]
+FLASH_PREFILL = dict(b=1, s=256, start=512, t=1024, kh=8, g=4, hd=128)  # one chunk
+SHORT = {"kv_bf16": "bf16", "kv_int8": "int8", "kv_mx": "mx"}
+# JSON row -> (kernel entry, mode); launches are counted per mode
+MODES = {
+    "fused_qmm_ternary": ("ternary", "m<=8"), "fused_qmm_ternary_prefill": ("ternary", "m>8"),
+    "fused_qmm_int8": ("int8", None),
+    **{f"flash_attend_{SHORT[f]}{sfx}": ("flash", f"{f}/{mode}")
+       for f in SHORT for sfx, mode in (("", "decode"), ("_prefill", "prefill"))},
+}
 
 
 def log(msg: str) -> None:
@@ -133,7 +167,7 @@ def phase_parity(dev) -> dict:
     from repro_torch.kernels.fused_qmm import fused_qmm_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {"fused_qmm_ternary": 0.0, "fused_qmm_int8": 0.0, "flash_attend_bf16": 0.0}
+    errs = {name: 0.0 for name in MODES}
     failures = []
     for name, k, n, decode, act in QDENSE_SITES:
         qt = _qsite(k, n, decode, gen, dev)
@@ -175,20 +209,105 @@ def phase_parity(dev) -> dict:
             log(f"parity flash S={s} window={window}: max_abs_err={err:.3e} (atol 5e-5) {'OK' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"flash S={s} window={window}")
+    failures += _parity_prefill_rows(dev, gen, errs)
+    failures += _parity_packed_flash(dev, gen, errs)
     if failures:
         raise SystemExit(f"parity failed: {failures}")
     return errs
 
 
+def _parity_prefill_rows(dev, gen, errs) -> list:
+    """Ternary sites at prefill-chunk M: row blocks past the first, 0 ulps."""
+    from repro_torch.kernels.fused_qmm import fused_qmm_ref
+
+    failures = []
+    for name, k, n, decode, act in QDENSE_SITES:
+        if decode != "ternary":
+            continue
+        qt = _qsite(k, n, decode, gen, dev)
+        for m in PREFILL_ROWS:
+            x = torch.cat([_edge_rows(k, gen, dev, torch.bfloat16),
+                           (torch.randn((m - M_ROWS, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)])
+            kw = dict(group=GROUP, act=act)
+            got = _entry(decode)(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
+            want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw)
+            torch.cuda.synchronize()
+            err, ulps = float((got - want).abs().max()), _ulps(got, want)
+            errs["fused_qmm_ternary_prefill"] = max(errs["fused_qmm_ternary_prefill"], err)
+            ok = bool(torch.isfinite(got).all()) and ulps == 0
+            log(f"parity qdense {name:7s} K={k:5d} N={n:6d} ternary M={m:3d} x=bfloat16 act={act}: "
+                f"max_abs_err={err:.3e} ulps={ulps} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"qdense {name} M={m}")
+        del qt
+    return failures
+
+
+def _packed_cache(fmt, b, t, kh, hd, gen, dev):
+    """A (B, T) cache of one layer filled by the port's quantize-on-write
+    from random bf16 K/V."""
+    from repro_torch.models import kv_cache
+
+    c = kv_cache.get_kv_format(fmt).init((b,), t, kh, hd, torch.bfloat16, dev)
+    kv = [(torch.randn((b, t, kh, hd), generator=gen, device=dev) * 2).to(torch.bfloat16) for _ in range(2)]
+    kv_cache.write(fmt, c, kv[0], kv[1], 0)
+    return c
+
+
+def _flash_case(fmt, shape, gen, dev, *, s, starts, valid):
+    """(q, cache leaves, q_start, valid, window) for one flash call."""
+    c = _packed_cache(fmt, shape["b"], shape["t"], shape["kh"], shape["hd"], gen, dev)
+    q = torch.randn((shape["b"], s, shape["kh"], shape["g"], shape["hd"]), generator=gen, device=dev)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev).reshape(-1, 1)  # noqa: E731
+    return q, c, i32(starts), i32(valid), i32([2**30])
+
+
+def _flash_args(case):
+    q, c, q_start, valid, win = case
+    return (q, c["k"], c["v"], c.get("ke"), c.get("ve"), q_start, valid, win)
+
+
+def _parity_packed_flash(dev, gen, errs) -> list:
+    """Flash over kv_int8 / kv_mx at the staged decode shape, every format at
+    one prefill chunk, and the in-chunk tail, kernel vs plain at 5e-5."""
+    from repro_torch.kernels.flash_prefill import flash_attend, flash_attend_ref
+
+    fd, fp = FLASH_DECODE, FLASH_PREFILL
+    cases = [(f, fd, 1, [v - 1 for v in FLASH_DECODE_VALID], FLASH_DECODE_VALID, w)
+             for f in ("kv_int8", "kv_mx") for w in (None, 64)]
+    cases += [(f, fp, fp["s"], [fp["start"]], [fp["start"] + fp["s"]], None) for f in SHORT]
+    tail = dict(fp, t=fp["s"])  # the in-chunk tail: a chunk's own K/V, S = T = 256
+    cases.append(("kv_bf16", tail, fp["s"], [0], [fp["s"]], None))
+    failures = []
+    for fmt, shape, s, starts, valid, window in cases:
+        case = _flash_case(fmt, shape, gen, dev, s=s, starts=starts, valid=valid)
+        if window is not None:
+            case = case[:4] + (torch.tensor([[window]], dtype=torch.int32, device=dev),)
+        args = _flash_args(case)
+        got = flash_attend(*args, fmt=fmt)
+        want = flash_attend_ref(*args, fmt=fmt)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        key = f"flash_attend_{SHORT[fmt]}{'' if s == 1 else '_prefill'}"
+        errs[key] = max(errs[key], err)
+        ok = bool(torch.isfinite(got).all()) and err <= 5e-5
+        what = "in-chunk tail" if shape is tail else ("decode" if s == 1 else "prefill chunk")
+        log(f"parity flash {fmt} {what} B={shape['b']} S={s} T={shape['t']} start={starts} valid={valid} "
+            f"window={window}: max_abs_err={err:.3e} (atol 5e-5) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash {fmt} {what} S={s} window={window}")
+    return failures
+
+
 # ---------------------------------------------------------------------------
 # 4. main path
 # ---------------------------------------------------------------------------
-def _ptq_cfg(n_layers=None):
+def _ptq_cfg(n_layers=None, **over):
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
 
     cfg = configs.get_config(ARCH, QuantConfig(w_bits=2, group_size=GROUP, mode="ptq", backend="auto"))
-    cfg = dataclasses.replace(cfg, flash_decode=True)
+    cfg = dataclasses.replace(cfg, flash_decode=True, **over)
     return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
 
 
@@ -199,13 +318,31 @@ def _boot(cfg, dev):
     return init_quantized(build_model(cfg, device=dev), gen)
 
 
-def _counters():
+def _entries():
     from repro_torch.kernels.flash_prefill import flash_attend
     from repro_torch.kernels.int8_matmul import int8_matmul_fused
     from repro_torch.kernels.ternary_matmul import ternary_matmul_fused
 
-    return {"fused_qmm_ternary": ternary_matmul_fused, "fused_qmm_int8": int8_matmul_fused,
-            "flash_attend_bf16": flash_attend}
+    return {"ternary": ternary_matmul_fused, "int8": int8_matmul_fused, "flash": flash_attend}
+
+
+def _reset_counts() -> None:
+    for fn in _entries().values():
+        fn.launches = 0
+        fn.mode_launches.clear()
+
+
+def _read_counts() -> dict:
+    """Launches per JSON row since the last reset."""
+    entries = _entries()
+    return {name: entries[e].launches if mode is None else entries[e].mode_launches[mode]
+            for name, (e, mode) in MODES.items()}
+
+
+def _require_launches(launches: dict, names, path: str) -> None:
+    bad = [name for name in names if launches[name] <= 0]
+    if bad:
+        raise SystemExit(f"{path} never launched {bad}")
 
 
 def phase_main(dev) -> dict:
@@ -227,23 +364,20 @@ def phase_main(dev) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     prompts = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen).tolist()
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW) for i, p in enumerate(prompts)]
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     done = eng.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _read_counts()
     stats = eng.stats()
+    used = {k: v for k, v in launches.items() if v}
     log(f"main: {len(done)} requests, {stats['tick']} ticks, {stats['tokens']} tokens in {run_s:.3f} s = "
-        f"{stats['tokens'] / run_s:.2f} tokens/s ({stats['tick'] / run_s:.2f} ticks/s); launches {launches} "
-        f"(per tick: {({k: v / stats['tick'] for k, v in launches.items()})})")
-    bad = [name for name, n in launches.items() if n <= 0]
-    if bad:
-        raise SystemExit(f"main path never launched {bad}")
+        f"{stats['tokens'] / run_s:.2f} tokens/s ({stats['tick'] / run_s:.2f} ticks/s); launches {used} "
+        f"(per tick: {({k: v / stats['tick'] for k, v in used.items()})})")
+    _require_launches(launches, ["fused_qmm_ternary", "fused_qmm_int8", "flash_attend_bf16"], "main path")
     if len(done) != N_REQ or any(len(r.output) != NEW for r in done):
         raise SystemExit("main path: not every request finished with its tokens")
     if any(not 0 <= t < cfg.padded_vocab for r in done for t in r.output):
@@ -259,9 +393,6 @@ def phase_main(dev) -> dict:
 def _trace_ticks(eng, cfg, n_ticks: int) -> None:
     """torch.profiler over a few steady decode ticks (4 busy slots, after
     the counted run): device busy share and device time by kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serving import Request
 
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -270,21 +401,30 @@ def _trace_ticks(eng, cfg, n_ticks: int) -> None:
         eng.submit(Request(uid=1000 + i, prompt=prompt, max_new_tokens=NEW))
     for _ in range(2):  # admit and warm
         eng.step()
+    _profile(eng.step, n_ticks, "trace", "tick")
+    eng.run()  # drain the traced requests
+
+
+def _profile(step, n: int, label: str, unit: str) -> None:
+    """torch.profiler over ``n`` calls of ``step``: wall time, device busy
+    share and device time by kernel, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            eng.step()
+        for _ in range(n):
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"trace: {n_ticks} ticks, {wall_us / n_ticks / 1e3:.3f} ms/tick wall, device busy "
-        f"{busy_us / n_ticks / 1e3:.3f} ms/tick = {busy_us / wall_us:.1%} (idle {1 - busy_us / wall_us:.1%}); "
-        f"{sum(e.count for e in kernels) / n_ticks:.0f} kernels/tick")
+    log(f"{label}: {n} {unit}s, {wall_us / n / 1e3:.3f} ms/{unit} wall, device busy "
+        f"{busy_us / n / 1e3:.3f} ms/{unit} = {busy_us / wall_us:.1%} (idle {1 - busy_us / wall_us:.1%}); "
+        f"{sum(e.count for e in kernels) / n:.0f} kernels/{unit}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"trace:   {e.self_device_time_total / n_ticks:9.1f} us/tick  {e.count / n_ticks:6.1f}/tick  {e.key[:90]}")
-    eng.run()  # drain the traced requests
+        log(f"{label}:   {e.self_device_time_total / n:9.1f} us/{unit}  {e.count / n:6.1f}/{unit}  {e.key[:90]}")
 
 
 def _qtensors(tree):
@@ -338,7 +478,193 @@ def _agreement(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 5. timings
+# 5. staged path
+# ---------------------------------------------------------------------------
+def _staged_prompts(cfg, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist() for n in STAGED_PROMPTS]
+
+
+def _pcts_ms(p) -> str:
+    return "n/a" if p is None else f"p50 {p['p50'] * 1e3:.1f} / p95 {p['p95'] * 1e3:.1f} / p99 {p['p99'] * 1e3:.1f} ms"
+
+
+def _serve_staged(dev, kv_fmt: str, n_layers: int, required, trace: bool) -> dict:
+    """Serve the staged traffic over ``kv_fmt`` at ``n_layers``; returns the
+    launches of this run, which must include every mode in ``required``."""
+    from repro_torch.models.kv_cache import cache_bytes
+    from repro_torch.serving import Request, SchedulerConfig, StagedEngine
+
+    cfg = _ptq_cfg(n_layers, kv_fmt=kv_fmt, flash_prefill=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams, plan, api = _boot(cfg, dev)
+    eng = StagedEngine(api, qparams, n_slots=STAGED_SLOTS, max_len=STAGED_MAX_LEN,
+                       sched=SchedulerConfig(prefill_chunk=STAGED_CHUNK, policy="decode"))
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    label = f"staged {kv_fmt} {cfg.n_layers}L"
+    log(f"{label}: boot {boot_s:.2f} s; kv cache {cache_bytes(eng.cache) / 1e9:.3f} GB "
+        f"({STAGED_SLOTS} slots x {STAGED_MAX_LEN}); prompts {STAGED_PROMPTS}, {NEW} new tokens each")
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW) for i, p in enumerate(_staged_prompts(cfg, SEED + 10))]
+    _reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _read_counts()
+    st = eng.stats()
+    lat = st["latency"]
+    log(f"{label}: {len(done)} requests in {run_s:.3f} s: {st['counts']['prefill_chunks']} prefill chunks, "
+        f"{st['counts']['inserts']} inserts, {st['counts']['generate_ticks']} generate ticks, {st['tokens']} tokens "
+        f"= {st['tokens'] / run_s:.2f} tokens/s; TTFT {_pcts_ms(lat['ttft'])}; TPOT {_pcts_ms(lat['tpot'])}; "
+        f"queue wait {_pcts_ms(lat['queue_wait'])}")
+    log(f"{label}: launches {({k: v for k, v in launches.items() if v})}")
+    _require_launches(launches, required, label)
+    if len(done) != len(reqs) or any(len(r.output) != NEW for r in done) or eng.leftover()["in_flight"]:
+        raise SystemExit(f"{label}: not every request finished with its tokens")
+    if any(not 0 <= t < cfg.padded_vocab for r in done for t in r.output):
+        raise SystemExit(f"{label}: token id out of range")
+    if st["counts"]["inserts"] != len(reqs):
+        raise SystemExit(f"{label}: {st['counts']['inserts']} inserts for {len(reqs)} requests")
+    log(f"{label}: first outputs {[r.output[:6] for r in sorted(done, key=lambda r: r.uid)[:2]]}")
+    if trace:
+        _trace_staged(eng, cfg)
+    del eng, qparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _trace_staged(eng, cfg) -> None:
+    """torch.profiler over generate ticks with 3 slots generating, then over
+    one 256-token prefill chunk (with its insert and first token)."""
+    from repro_torch.serving import Request
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    for i in range(STAGED_SLOTS - 1):
+        eng.submit(Request(uid=2000 + i, prompt=torch.randint(0, cfg.vocab, (16,), generator=gen).tolist(),
+                           max_new_tokens=64))
+    while eng.queue or eng._pf is not None:  # prefill all three
+        eng.step()
+    for _ in range(2):
+        eng.step()
+    ticks = eng.counts["generate_ticks"]
+    _profile(eng.step, 6, "trace staged generate", "tick")
+    if eng.counts["generate_ticks"] != ticks + 6:
+        raise SystemExit("the traced staged steps were not all generate ticks")
+    eng.submit(Request(uid=2100, prompt=torch.randint(0, cfg.vocab, (STAGED_CHUNK,), generator=gen).tolist(),
+                       max_new_tokens=4))
+    chunks = eng.counts["prefill_chunks"]
+    _profile(eng.step, 1, "trace staged prefill", "chunk")
+    if eng.counts["prefill_chunks"] != chunks + 1:
+        raise SystemExit("the traced staged step was not the 256-token prefill chunk")
+    eng.run()
+
+
+def phase_staged(dev) -> dict:
+    """The staged path: 36 layers over kv_int8 (traced), the same traffic
+    at 4 layers over kv_mx and kv_bf16, and the chunked-prefill twins."""
+    runs = [("kv_int8", None, ["fused_qmm_ternary", "fused_qmm_ternary_prefill", "fused_qmm_int8",
+                               "flash_attend_int8", "flash_attend_int8_prefill"], True),
+            ("kv_mx", SMALL_DEPTH, ["flash_attend_mx", "flash_attend_mx_prefill"], False),
+            ("kv_bf16", SMALL_DEPTH, ["flash_attend_bf16", "flash_attend_bf16_prefill"], False)]
+    total: dict = {}
+    for fmt, depth, required, trace in runs:
+        for k, v in _serve_staged(dev, fmt, depth or 36, required, trace).items():
+            total[k] = total.get(k, 0) + v
+    for fmt in ("kv_int8", "kv_mx"):
+        _chunk_twin(dev, fmt)
+    return total
+
+
+TWIN_STARTS = [0, 77, 300, 333]  # prefill_chunk boundaries, then 4 decode steps
+
+
+def _twin_logits(a, params, toks) -> torch.Tensor:
+    """Last-token logits of each chunk and of 4 decode steps, (7, 2, vocab)."""
+    cache = a.init_cache(2, 512)
+    steps = []
+    with torch.inference_mode():
+        for s0, s1 in zip(TWIN_STARTS, TWIN_STARTS[1:]):
+            logits, cache = a.prefill_chunk(params, toks[:, s0:s1], s0, cache)
+            steps.append(logits[:, -1].float())
+        for i in range(4):
+            pos = TWIN_STARTS[-1] + i
+            logits, cache = a.decode(params, toks[:, pos:pos + 1], pos, cache)
+            steps.append(logits[:, -1].float())
+    return torch.stack(steps)
+
+
+def _twin_diff(got, want):
+    return float((got - want).abs().max()), bool((got.argmax(-1) == want.argmax(-1)).all())
+
+
+def _chunk_twin(dev, kv_fmt: str) -> None:
+    """2-layer full-width twins over ``kv_fmt``: prefill_chunk at ragged
+    starts (0, 77, 300) then 4 decode steps, the kernel path (flash prefill
+    and decode) against the plain path (dense attention oracle).
+
+    fp32: float weights and float32 activations, the setting of the
+    reference's model-level tolerance (tests/test_flash_prefill.py): logits
+    within 5e-3 and equal argmax.
+    ptq: the served model (ternary PTQ; bf16, then float32 activations),
+    cuda backend and flash against the ref backend and the oracle, split in
+    two legs.  The qdense leg (cuda vs ref backend, both with the oracle)
+    must be bit-identical in bf16.  The attention leg is not held to 5e-3:
+    flash and the oracle sum in other orders (kernel within 5e-5 of its
+    plain version), and every 8-bit DFP activation quantizer turns a
+    sub-ulp difference of its input into whole mantissa steps -- in float32
+    as in bf16; each greedy pick must be the plain path's best token or
+    within the observed difference of it."""
+    from repro_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    fcfg = dataclasses.replace(_ptq_cfg(2, kv_fmt=kv_fmt, flash_prefill=True, dtype="float32"),
+                               quant=dataclasses.replace(_ptq_cfg().quant, mode="fp"))
+    toks = torch.randint(0, fcfg.vocab, (2, TWIN_STARTS[-1] + 4), generator=gen).to(dev)
+    fapi = build_model(fcfg, device=dev)
+    fparams = fapi.init(torch.Generator(device=dev).manual_seed(SEED))
+    foracle = build_model(dataclasses.replace(fcfg, flash_decode=False, flash_prefill=False), device=dev)
+    want = _twin_logits(foracle, fparams, toks)
+    diff, same = _twin_diff(_twin_logits(fapi, fparams, toks), want)
+    ok_fp = diff <= 5e-3 and same
+    log(f"twin fp32 {kv_fmt} (2 layers, full width, chunks {TWIN_STARTS} + 4 decode steps): logits "
+        f"max|flash - oracle| = {diff:.3e} (atol 5e-3; logit scale {float(want.abs().max()):.3e}); "
+        f"argmax equal {same} {'OK' if ok_fp else 'FAIL'}")
+    del fparams, fapi, foracle
+    torch.cuda.empty_cache()
+
+    ok_ptq = True
+    for dtype in ("bfloat16", "float32"):  # the served activations, then float32 to show the DFP effect
+        cfg = _ptq_cfg(2, kv_fmt=kv_fmt, flash_prefill=True, dtype=dtype)
+        qparams, plan, api = _boot(cfg, dev)
+        oracle = build_model(dataclasses.replace(cfg, flash_decode=False, flash_prefill=False), device=dev)
+        got = _twin_logits(api, qparams, toks)
+        mid = _twin_logits(oracle.with_plan(plan), qparams, toks)  # cuda backend, oracle attention
+        plain = _twin_logits(oracle.with_plan(dataclasses.replace(plan, backend="ref")), qparams, toks)
+        q_diff, _ = _twin_diff(mid, plain)
+        diff, same = _twin_diff(got, plain)
+        a_diff, _ = _twin_diff(got, mid)
+        pick = got.argmax(-1, keepdim=True)
+        near_best = bool((plain.gather(-1, pick)[..., 0] >= plain.amax(-1) - 2 * diff).all())
+        finite = bool(torch.isfinite(got).all())
+        # bf16: the backends agree bit for bit; float32: to float32 rounding
+        ok = finite and near_best and q_diff <= (0.0 if dtype == "bfloat16" else 1e-5)
+        ok_ptq = ok_ptq and ok
+        log(f"twin ptq {kv_fmt} ({dtype}): logits max|kernel - plain| = {diff:.3e} (logit scale "
+            f"{float(plain.abs().max()):.3e}); qdense leg max|cuda - ref| = {q_diff:.3e}; attention leg "
+            f"max|flash - oracle| = {a_diff:.3e}; argmax equal {same}, every pick within the difference of "
+            f"the best {near_best}; finite {finite} {'OK' if ok else 'FAIL'}")
+        del qparams, api, oracle
+        torch.cuda.empty_cache()
+    if not (ok_fp and ok_ptq):
+        raise SystemExit(f"twin {kv_fmt}: the kernel path disagrees with the plain path")
+
+
+# ---------------------------------------------------------------------------
+# 6. timings
 # ---------------------------------------------------------------------------
 class _Timer:
     """CUDA-event time of one call, device memory flushed before each run
@@ -374,87 +700,134 @@ def phase_timings(dev) -> dict:
     timer = _Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows = {}
+    prefill_sites = []
     for name, k, n, decode, act in QDENSE_SITES:
         qt = _qsite(k, n, decode, gen, dev)
-        x = (torch.randn((M_ROWS, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
-        kw = dict(group=GROUP, act=act)
-        entry = _entry(decode)
-        before = entry.launches
-        ms = timer(lambda: entry(x, qt.packed, qt.scale_m, qt.scale_e, **kw))
-        entry.launches = before  # timing launches are not main-path launches
-        plain_ms = timer(lambda: fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw), iters=3, warmup=1)
         w_bf16 = dequantize_weights(qt).to(torch.bfloat16)
-        lib_ms = timer(lambda: torch.matmul(x, w_bf16))
-        del w_bf16
-        nbytes = (x.numel() * x.element_size() + qt.nbytes() + M_ROWS * n * 4)
-        ops = 2 * M_ROWS * k * n  # int8 multiply-adds on the integer pipeline
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
-        rows[name] = dict(decode=decode, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                          bytes=nbytes)
-        log(f"time qdense {name:7s} K={k:5d} N={n:6d} {decode:7s}: kernel {ms:.4f} ms, bound {rows[name]['bound_ms']:.4f} ms "
-            f"({nbytes / 1e6:.2f} MB by {rows[name]['bound_by']}), plain {plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms; "
-            f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
-        del qt
+        for m in (M_ROWS,) + ((PREFILL_ROWS[-1],) if decode == "ternary" else ()):
+            x = (torch.randn((m, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+            kw = dict(group=GROUP, act=act)
+            entry = _entry(decode)
+            ms = timer(lambda: entry(x, qt.packed, qt.scale_m, qt.scale_e, **kw))
+            plain_ms = timer(lambda: fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw),
+                             iters=3, warmup=1)
+            lib_ms = timer(lambda: torch.matmul(x, w_bf16))
+            nbytes = (x.numel() * x.element_size() + qt.nbytes() + m * n * 4)
+            ops = 2 * m * k * n  # int8 multiply-adds on the integer pipeline
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+            row = dict(decode=decode, m=m, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
+                       t_bytes=t_bytes, t_ops=t_ops)
+            if m == M_ROWS:
+                rows[name] = row
+            else:
+                prefill_sites.append(row)
+            log(f"time qdense {name:7s} K={k:5d} N={n:6d} {decode:7s} M={m:3d}: kernel {ms:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GOP; by {row['bound_by']}), "
+                f"plain {plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms; {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+        del qt, w_bf16
+    rows["ternary_prefill"] = {key: sum(r[key] for r in prefill_sites)
+                               for key in ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")}
+    rows["ternary_prefill"]["bound_by"] = ("bytes" if rows["ternary_prefill"]["t_bytes"]
+                                           >= rows["ternary_prefill"]["t_ops"] else "operations")
+    log(f"time qdense one layer's 7 ternary sites at M={PREFILL_ROWS[-1]}: kernel {rows['ternary_prefill']['ms']:.4f} ms, "
+        f"bound {rows['ternary_prefill']['bound_ms']:.4f} ms, torch.matmul bf16 {rows['ternary_prefill']['library_ms']:.4f} ms "
+        f"(every row block re-streams the weights: {-(-PREFILL_ROWS[-1] // 8)} row blocks)")
+
+    # flash kv_bf16 at the lockstep decode shape (4 slots x 256 positions)
     fs = FLASH_SHAPE
-    q = torch.randn((fs["b"], 1, fs["kh"], fs["g"], fs["hd"]), generator=gen, device=dev)
-    kc = torch.randn((fs["b"], fs["t"], fs["kh"], fs["hd"]), generator=gen, device=dev).to(torch.bfloat16)
-    vc = torch.randn_like(kc, dtype=torch.float32).to(torch.bfloat16)
-    valid = torch.tensor(FLASH_VALID, dtype=torch.int32, device=dev).reshape(-1, 1)
-    q_start = valid - 1
-    win = torch.tensor([[2**30]], dtype=torch.int32, device=dev)
-    before = flash_attend.launches
-    ms = timer(lambda: flash_attend(q, kc, vc, None, None, q_start, valid, win, fmt="kv_bf16"))
-    flash_attend.launches = before
-    plain_ms = timer(lambda: flash_attend_ref(q, kc, vc, None, None, q_start, valid, win, fmt="kv_bf16"), iters=5)
-    qh = q[:, 0].reshape(fs["b"], fs["kh"] * fs["g"], 1, fs["hd"]).to(torch.bfloat16)
-    kh_, vh_ = kc.transpose(1, 2), vc.transpose(1, 2)
-    mask = (torch.arange(fs["t"], device=dev)[None, :] < valid)[:, None, None, :]
-    lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh_, vh_, attn_mask=mask, enable_gqa=True))
-    live = int(valid.sum())  # the keys this run's fill levels need
-    nbytes = (q.numel() * 4 + 2 * live * fs["kh"] * fs["hd"] * 2 + 3 * fs["b"] * 4 + q.numel() * 4)
-    flops = 4 * live * fs["kh"] * fs["g"] * fs["hd"]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
-    rows["flash"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes)
-    log(f"time flash decode B={fs['b']} T={fs['t']} Kh={fs['kh']} G={fs['g']} hd={fs['hd']} valid={FLASH_VALID}: "
-        f"kernel {ms:.4f} ms, bound {rows['flash']['bound_ms']:.5f} ms ({nbytes / 1e6:.3f} MB live cache), "
-        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; full-cache read {2 * fs['b'] * fs['t'] * fs['kh'] * fs['hd'] * 2 / 1e6:.2f} MB")
+    case = _flash_case("kv_bf16", fs, gen, dev, s=1, starts=[v - 1 for v in FLASH_VALID], valid=FLASH_VALID)
+    rows["flash_attend_bf16"] = _time_flash(timer, "kv_bf16", fs, case, "decode")
+    for fmt in ("kv_int8", "kv_mx"):  # the staged decode tick
+        fd = FLASH_DECODE
+        case = _flash_case(fmt, fd, gen, dev, s=1, starts=[v - 1 for v in FLASH_DECODE_VALID],
+                           valid=FLASH_DECODE_VALID)
+        rows[f"flash_attend_{SHORT[fmt]}"] = _time_flash(timer, fmt, fd, case, "decode")
+    fp = FLASH_PREFILL
+    for fmt in SHORT:  # one 256-token chunk from 512
+        case = _flash_case(fmt, fp, gen, dev, s=fp["s"], starts=[fp["start"]], valid=[fp["start"] + fp["s"]])
+        rows[f"flash_attend_{SHORT[fmt]}_prefill"] = _time_flash(timer, fmt, fp, case, "prefill chunk")
     return rows
+
+
+def _time_flash(timer, fmt, shape, case, what) -> dict:
+    """Kernel, plain version and SDPA over the dequantized bf16 cache (the
+    yardstick), with the bound from the live cache bytes and the score and
+    P.V operations these fill levels need."""
+    from repro_torch.kernels.flash_prefill import dequant_tile, flash_attend, flash_attend_ref
+    from repro_torch.models.kv_cache import MX_KV_BLOCK
+
+    q, c, q_start, valid, win = case
+    args = _flash_args(case)
+    b, s, kh, g, hd = q.shape
+    t = shape["t"]
+    ms = timer(lambda: flash_attend(*args, fmt=fmt))
+    plain_ms = timer(lambda: flash_attend_ref(*args, fmt=fmt), iters=3, warmup=1)
+    kd = dequant_tile(c["k"], c.get("ke"), fmt, 0, t).to(torch.bfloat16).transpose(1, 2)  # (B, Kh, T, hd)
+    vd = dequant_tile(c["v"], c.get("ve"), fmt, 0, t).to(torch.bfloat16).transpose(1, 2)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kh * g, s, hd).to(torch.bfloat16)
+    q_pos = q_start + torch.arange(s, device=q.device)[None]  # (B, S)
+    k_pos = torch.arange(t, device=q.device)
+    mask = ((k_pos[None, None] <= q_pos[..., None]) & (k_pos[None, None] < valid[..., None]))[:, None]
+    lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask,
+                                                                           enable_gqa=True))
+    pairs = int(mask.sum())  # live (query, key) pairs per kv-head group
+    live = [int(v) for v in valid.flatten()]
+    if fmt == "kv_bf16":
+        cache = sum(2 * n * kh * hd * 2 for n in live)
+    elif fmt == "kv_int8":
+        cache = sum(2 * n * kh * (hd + 1) for n in live)
+    else:
+        cache = sum(2 * (n * kh * hd // 2 + -(-n // MX_KV_BLOCK) * kh) for n in live)
+    nbytes = 2 * q.numel() * 4 + cache + 3 * b * 4  # q in, out, live cache, scalars
+    flops = 4 * pairs * kh * g * hd  # q.k and p.v, multiply-add = 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes)
+    log(f"time flash {fmt} {what} B={b} S={s} T={t} Kh={kh} G={g} hd={hd} valid={live}: kernel {ms:.4f} ms, "
+        f"bound {row['bound_ms']:.5f} ms ({nbytes / 1e6:.3f} MB live, {flops / 1e9:.3f} GFLOP f32; by {row['bound_by']}), "
+        f"plain {plain_ms:.4f} ms, sdpa bf16 {lib_ms:.4f} ms")
+    return row
 
 
 def _kernel_line(errs, launches, rows) -> dict:
     layer = [r for r in rows.values() if r.get("decode") == "ternary"]
     sums = lambda key: sum(r[key] for r in layer)  # noqa: E731
-    lm, fl = rows["lm_head"], rows["flash"]
-    return {"kernels": [
-        {"name": "fused_qmm_ternary", "route": "cuda", "source": "src/repro_torch/csrc/fused_qmm.cu",
-         "replaces": "src/repro/kernels/ternary_matmul.py:63", "launches": launches["fused_qmm_ternary"],
-         "max_abs_err": errs["fused_qmm_ternary"], "ms": sums("ms"), "plain_ms": sums("plain_ms"),
-         "bound_ms": sums("bound_ms"), "bound_by": "bytes", "library_ms": sums("library_ms")},
-        {"name": "fused_qmm_int8", "route": "cuda", "source": "src/repro_torch/csrc/fused_qmm.cu",
-         "replaces": "src/repro/kernels/int8_matmul.py:53", "launches": launches["fused_qmm_int8"],
-         "max_abs_err": errs["fused_qmm_int8"], "ms": lm["ms"], "plain_ms": lm["plain_ms"],
-         "bound_ms": lm["bound_ms"], "bound_by": lm["bound_by"], "library_ms": lm["library_ms"]},
-        {"name": "flash_attend_bf16", "route": "cuda", "source": "src/repro_torch/csrc/flash_attend.cu",
-         "replaces": "src/repro/kernels/flash_prefill.py:158", "launches": launches["flash_attend_bf16"],
-         "max_abs_err": errs["flash_attend_bf16"], "ms": fl["ms"], "plain_ms": fl["plain_ms"],
-         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
-    ]}
+    replaces = {"ternary": "src/repro/kernels/ternary_matmul.py:63", "int8": "src/repro/kernels/int8_matmul.py:53",
+                "flash": "src/repro/kernels/flash_prefill.py:158"}
+    source = {"ternary": "src/repro_torch/csrc/fused_qmm.cu", "int8": "src/repro_torch/csrc/fused_qmm.cu",
+              "flash": "src/repro_torch/csrc/flash_attend.cu"}
+    timed = dict(rows)
+    timed["fused_qmm_ternary"] = dict(ms=sums("ms"), plain_ms=sums("plain_ms"), bound_ms=sums("bound_ms"),
+                                      bound_by="bytes", library_ms=sums("library_ms"))
+    timed["fused_qmm_ternary_prefill"] = rows["ternary_prefill"]
+    timed["fused_qmm_int8"] = rows["lm_head"]
+    out = []
+    for name, (entry, _) in MODES.items():
+        r = timed[name]
+        out.append({"name": name, "route": "cuda", "source": source[entry], "replaces": replaces[entry],
+                    "launches": launches[name], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return {"kernels": out}
 
 
 def main() -> None:
     t_start = time.perf_counter()
-    phase_card()
+    smi = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
     errs = phase_parity(dev)
     launches = phase_main(dev)
+    for k, v in phase_staged(dev).items():
+        launches[k] += v
     rows = phase_timings(dev)
     line = _kernel_line(errs, launches, rows)
     if not all(math.isfinite(v) for k in line["kernels"] for v in k.values() if isinstance(v, float)):
         raise SystemExit("a measured number is not finite")
-    log(f"total {time.perf_counter() - t_start:.1f} s; ternary ms/plain/library/bound are sums over one layer's 7 sites")
+    log(f"total {time.perf_counter() - t_start:.1f} s; ternary ms/plain/library/bound are sums over one layer's "
+        f"7 sites (at M={M_ROWS}, and at M={PREFILL_ROWS[-1]} for fused_qmm_ternary_prefill); launches are "
+        f"summed over the lockstep and the three staged runs")
+    log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

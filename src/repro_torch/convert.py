@@ -1,4 +1,8 @@
-"""Parameters of the JAX package -> parameters of the port.
+"""Parameters and caches of the JAX package -> those of the port.
+
+``cache_from_jax(tree)`` turns the reference's KV cache (a dict of stacked
+(L, B, T, ...) leaves: bf16, int8 mantissas and exponents, uint8 nibble
+pairs) into the port's, byte for byte.
 
 ``params_from_jax(tree)`` takes the reference's fp parameter tree or its
 PTQ tree (numpy arrays or anything ``numpy.asarray`` accepts), with blocks
@@ -68,3 +72,11 @@ def params_from_jax(tree, device=None):
         else:
             out[key] = _convert(val, dev)
     return out
+
+
+def cache_from_jax(cache, device=None):
+    """The reference's cache dict (numpy or array leaves) as the port's
+    cache: the same leaf names, dtypes and bytes."""
+    dev = resolve_device(device)
+    # a copy: the port writes its cache in place, numpy views may be read-only
+    return {name: _tensor(np.array(leaf), dev) for name, leaf in cache.items()}

@@ -1,23 +1,27 @@
-// Flash attention over a kv_bf16 cache for Hopper (sm_90a).  Replaces the
-// TPU kernel repro/kernels/flash_prefill.py::flash_attend (_kernel), reached
-// at S == 1 through repro/kernels/flash_decode.py::flash_decode.  The
-// wrapper, the plain PyTorch version and the design notes are in
+// Flash attention over a packed KV cache (kv_bf16, kv_int8, kv_mx) for
+// Hopper (sm_90a).  Replaces the TPU kernel
+// repro/kernels/flash_prefill.py::flash_attend (_kernel, _dequant_tile),
+// reached at S == 1 through repro/kernels/flash_decode.py::flash_decode.
+// The wrapper, the plain PyTorch version and the design notes are in
 // src/repro_torch/kernels/flash_prefill.py.
 //
-// Split over the key axis (flash decoding), two launches:
-//   partial: grid (B * Kh, S / bq, T / tk), 128 threads.  A block owns one
-//            (batch row, kv head, query block) and tk keys; the G query
-//            heads of the group ride as R = bq * G rows.  It loads its K
-//            and V rows into shared memory with 16-byte loads all in
-//            flight together (rows padded by one 32-bit word so a thread
-//            per key reads without bank conflicts), masks k < valid[b],
-//            k <= q_pos, q_pos - k < win with -1e30 like the reference,
-//            and writes its softmax max m, sum l and unnormalized P.V.  A
-//            block whose keys all lie at or past valid[b] writes
-//            m = -1e30, l = 0, acc = 0 without reading the cache: its
-//            weight in the combine, exp(-1e30 - M), is 0 either way.
-//   combine: grid (B * Kh, S / bq); out = sum_s e^(m_s - M) acc_s /
-//            max(sum_s e^(m_s - M) l_s, 1e-30).
+// One kernel, grid (B * Kh, S / bq, splits), 128 threads.  A block owns one
+// (batch row, kv head, query block); the G query heads of the group ride as
+// R = bq * G rows.  Per key tile of tk keys it loads the K and V rows with
+// 16-byte loads and dequantizes them into float32 shared memory (kv_bf16:
+// cast; kv_int8: q * 2**e per (token, head); kv_mx: sign-extended nibbles,
+// low nibble = even channel, times 2**e per 32-token block -- all exact),
+// masks k < valid[b], k <= q_pos, q_pos - k < win with -1e30 like the
+// reference, and folds the tile into a running (m, l, acc) in shared memory:
+//   m' = max(m, max_j s), p = e^(s - m'), c = e^(m - m'),
+//   l' = l c + sum_j p,   acc' = acc c + p.V.
+// Tiles that hold no live key for any row of the block are skipped (they
+// would add exact zeros).
+//   splits == 1 (prefill chunks, S > 1): the block walks every key tile and
+//            writes acc / max(l, 1e-30).
+//   splits  > 1 (decode, S == 1; flash decoding): block z takes key tile z
+//            only and writes its (m, l, acc); a second launch combines:
+//            out = sum_z e^(m_z - M) acc_z / max(sum_z e^(m_z - M) l_z, 1e-30).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,110 +31,175 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRc = 8;  // query rows held in registers at a time
+constexpr int kMxBlock = 32;
 constexpr float kNegInf = -1e30f;
+enum Fmt { kBf16 = 0, kInt8 = 1, kMx = 2 };
 
 struct Shape {
   int S, T, Kh, G, hd, bq, tk, splits;
 };
 
+// 2**e for an integer e clamped to [-126, 127], from the exponent bits (as
+// repro_torch/core/dfp.py::exp2i).
+__device__ __forceinline__ float exp2i(int e) {
+  e = min(max(e, -126), 127);
+  return __int_as_float((e + 127) << 23);
+}
+
+// Keys [j0, j0 + tk) of (b, kh) dequantized into dst[tk][hd + 1] float32.
+template <int FMT>
+__device__ __forceinline__ void load_tile(float* dst, const void* src, const int8_t* ex, int b, int kh,
+                                          int j0, const Shape& sh) {
+  constexpr int kPer = FMT == kBf16 ? 8 : (FMT == kInt8 ? 16 : 32);  // values per 16 bytes
+  const int hd = sh.hd, ld = hd + 1, chunks = hd / kPer;
+  const size_t row_bytes = FMT == kBf16 ? 2 * hd : (FMT == kInt8 ? hd : hd / 2);
+  const char* base = static_cast<const char*>(src);
+  for (int c = threadIdx.x; c < sh.tk * chunks; c += kThreads) {
+    const int jj = c / chunks, part = c % chunks, j = j0 + jj;
+    const size_t row = (static_cast<size_t>(b) * sh.T + j) * sh.Kh + kh;
+    const uint4 val = __ldg(reinterpret_cast<const uint4*>(base + row * row_bytes) + part);
+    float* o = dst + jj * ld + part * kPer;
+    if constexpr (FMT == kBf16) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&val);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[2 * i] = __low2float(h[i]), o[2 * i + 1] = __high2float(h[i]);
+    } else if constexpr (FMT == kInt8) {
+      const float s = exp2i(ex[row]);
+      const int8_t* q = reinterpret_cast<const int8_t*>(&val);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) o[i] = static_cast<float>(q[i]) * s;
+    } else {
+      const size_t erow = (static_cast<size_t>(b) * (sh.T / kMxBlock) + j / kMxBlock) * sh.Kh + kh;
+      const float s = exp2i(ex[erow]);
+      const uint8_t* q = reinterpret_cast<const uint8_t*>(&val);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int lo = q[i] & 0xF, hi = q[i] >> 4;
+        o[2 * i] = static_cast<float>(lo >= 8 ? lo - 16 : lo) * s;
+        o[2 * i + 1] = static_cast<float>(hi >= 8 ? hi - 16 : hi) * s;
+      }
+    }
+  }
+}
+
+template <int FMT>
 __global__ void __launch_bounds__(kThreads)
-flash_partial_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_start,
-                     const int* __restrict__ valid, const int* __restrict__ window,
-                     float* __restrict__ part_ml, float* __restrict__ part_acc, Shape sh,
-                     float scale) {
+flash_kernel(const float* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
+             const int8_t* __restrict__ ke, const int8_t* __restrict__ ve, const int* __restrict__ q_start,
+             const int* __restrict__ valid, const int* __restrict__ window, float* __restrict__ part_ml,
+             float* __restrict__ part_acc, float* __restrict__ o, Shape sh, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int b = blockIdx.x / sh.Kh, kh = blockIdx.x % sh.Kh, qi = blockIdx.y, sp = blockIdx.z;
-  const int R = sh.bq * sh.G, hd = sh.hd, tk = sh.tk, ld = hd + 2;
-  const int j0 = sp * tk;
-  const size_t slot = (static_cast<size_t>(blockIdx.x) * gridDim.y + qi) * sh.splits + sp;
-  float* ml = part_ml + slot * R * 2;     // [R][2] = (m, l)
-  float* pacc = part_acc + slot * R * hd;  // [R][hd]
+  const int R = sh.bq * sh.G, hd = sh.hd, tk = sh.tk, ld = hd + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = q_start[b] + qi * sh.bq, vl = valid[b], win = window[0];
 
-  if (j0 >= vl) {  // every key of this block is past the fill level
-    for (int r = tid; r < R; r += kThreads) ml[2 * r] = kNegInf, ml[2 * r + 1] = 0.0f;
-    for (int i = tid; i < R * hd; i += kThreads) pacc[i] = 0.0f;
-    return;
-  }
+  float* qs = sm;              // [R][hd] scaled queries
+  float* acc = qs + R * hd;    // [R][hd] running unnormalized P.V
+  float* sc = acc + R * hd;    // [R][tk] scores, then probabilities
+  float* mrow = sc + R * tk;   // [R] running max
+  float* lrow = mrow + R;      // [R] running sum
+  float* crow = lrow + R;      // [R] this tile's correction e^(m - m')
+  float* kt = crow + R;        // [tk][ld] dequantized keys
+  float* vt = kt + tk * ld;    // [tk][ld] dequantized values
 
-  float* qs = sm;                  // [R][hd] scaled queries
-  float* sc = qs + R * hd;         // [R][tk] scores, then probabilities
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(sc + R * tk);  // [tk][ld]
-  __nv_bfloat16* vt = kt + tk * ld;                                   // [tk][ld]
-
-  const int chunks = hd / 8;  // 16-byte chunks per key row
-#pragma unroll 8
-  for (int c = tid; c < 2 * tk * chunks; c += kThreads) {
-    const int which = c / (tk * chunks), jj = (c / chunks) % tk, part = c % chunks;
-    const __nv_bfloat16* src = (which ? v : k) + ((static_cast<size_t>(b) * sh.T + j0 + jj) * sh.Kh + kh) * hd + part * 8;
-    const uint4 val = __ldg(reinterpret_cast<const uint4*>(src));
-    unsigned* dst = reinterpret_cast<unsigned*>((which ? vt : kt) + jj * ld + part * 8);
-    dst[0] = val.x, dst[1] = val.y, dst[2] = val.z, dst[3] = val.w;
-  }
   for (int i = tid; i < R * hd; i += kThreads) {
     const int r = i / hd, d = i % hd;
     const int s = qi * sh.bq + r / sh.G, g = r % sh.G;
     qs[i] = q[((static_cast<size_t>(b) * sh.S + s) * sh.Kh + kh) * sh.G * hd + g * hd + d] * scale;
+    acc[i] = 0.0f;
   }
-  __syncthreads();
+  for (int r = tid; r < R; r += kThreads) mrow[r] = kNegInf, lrow[r] = 0.0f;
 
-  // masked scores, a thread per (row, key)
-  for (int i = tid; i < R * tk; i += kThreads) {
-    const int r = i / tk, jj = i % tk;
-    const int kp = j0 + jj, qpos = q0 + r / sh.G;
-    float s = kNegInf;
-    if (kp < vl && kp <= qpos && qpos - kp < win) {
-      const __nv_bfloat16* kr = kt + jj * ld;
-      const float* qr = qs + r * hd;
-      float acc = 0.0f;
-      for (int d = 0; d < hd; d += 2) {
-        const __nv_bfloat162 k2 = *reinterpret_cast<const __nv_bfloat162*>(kr + d);
-        acc = fmaf(qr[d], __low2float(k2), acc);
-        acc = fmaf(qr[d + 1], __high2float(k2), acc);
+  // live keys of the block lie in [k_lo, k_hi): past the fill level, after
+  // the last query, or outside the first query's window every row masks
+  const int k_hi = min(vl, q0 + sh.bq);
+  const int k_lo = q0 - win + 1;
+  const int t_begin = sh.splits > 1 ? sp : 0, t_end = sh.splits > 1 ? sp + 1 : sh.T / tk;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int j0 = tile * tk;
+    if (j0 >= k_hi || j0 + tk <= k_lo) continue;  // uniform over the block
+    __syncthreads();  // the previous tile is done with kt, vt and sc
+    load_tile<FMT>(kt, k, ke, b, kh, j0, sh);
+    load_tile<FMT>(vt, v, ve, b, kh, j0, sh);
+    __syncthreads();
+
+    // masked scores, a thread per (row, key)
+    for (int i = tid; i < R * tk; i += kThreads) {
+      const int r = i / tk, jj = i % tk;
+      const int kp = j0 + jj, qpos = q0 + r / sh.G;
+      float s = kNegInf;
+      if (kp < vl && kp <= qpos && qpos - kp < win) {
+        const float* kr = kt + jj * ld;
+        const float* qr = qs + r * hd;
+        float a = 0.0f;
+        for (int d = 0; d < hd; ++d) a = fmaf(qr[d], kr[d], a);
+        s = a;
       }
-      s = acc;
+      sc[i] = s;
     }
-    sc[i] = s;
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // softmax statistics of this block's keys, a warp per row
-  for (int r = warp; r < R; r += kWarps) {
-    float mx = kNegInf;
-    for (int jj = lane; jj < tk; jj += 32) mx = fmaxf(mx, sc[r * tk + jj]);
+    // online-softmax update, a warp per row
+    for (int r = warp; r < R; r += kWarps) {
+      float mx = kNegInf;
+      for (int jj = lane; jj < tk; jj += 32) mx = fmaxf(mx, sc[r * tk + jj]);
 #pragma unroll
-    for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.0f;
-    for (int jj = lane; jj < tk; jj += 32) {
-      const float p = expf(sc[r * tk + jj] - mx);
-      sc[r * tk + jj] = p;
-      sum += p;
+      for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = mrow[r], m_new = fmaxf(m_old, mx);
+      float sum = 0.0f;
+      for (int jj = lane; jj < tk; jj += 32) {
+        const float p = expf(sc[r * tk + jj] - m_new);
+        sc[r * tk + jj] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        crow[r] = corr;
+        lrow[r] = lrow[r] * corr + sum;
+        mrow[r] = m_new;
+      }
     }
-#pragma unroll
-    for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) ml[2 * r] = mx, ml[2 * r + 1] = sum;
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // unnormalized P.V, a thread per head_dim lane
-  for (int d = tid; d < hd; d += kThreads) {
-    for (int r0 = 0; r0 < R; r0 += kRc) {
-      float pv[kRc];
+    // acc = acc * corr + P.V, a thread per head_dim lane
+    for (int d = tid; d < hd; d += kThreads) {
+      for (int r0 = 0; r0 < R; r0 += kRc) {
+        float pv[kRc];
 #pragma unroll
-      for (int rr = 0; rr < kRc; ++rr) pv[rr] = 0.0f;
+        for (int rr = 0; rr < kRc; ++rr) pv[rr] = 0.0f;
 #pragma unroll 8
-      for (int jj = 0; jj < tk; ++jj) {
-        const float vv = __bfloat162float(vt[jj * ld + d]);
+        for (int jj = 0; jj < tk; ++jj) {
+          const float vv = vt[jj * ld + d];
+#pragma unroll
+          for (int rr = 0; rr < kRc; ++rr)
+            if (r0 + rr < R) pv[rr] = fmaf(sc[(r0 + rr) * tk + jj], vv, pv[rr]);
+        }
 #pragma unroll
         for (int rr = 0; rr < kRc; ++rr)
-          if (r0 + rr < R) pv[rr] = fmaf(sc[(r0 + rr) * tk + jj], vv, pv[rr]);
+          if (r0 + rr < R) {
+            float* a = acc + (r0 + rr) * hd + d;
+            *a = *a * crow[r0 + rr] + pv[rr];
+          }
       }
-#pragma unroll
-      for (int rr = 0; rr < kRc; ++rr)
-        if (r0 + rr < R) pacc[(r0 + rr) * hd + d] = pv[rr];
     }
+  }
+  __syncthreads();
+
+  if (sh.splits > 1) {  // this key run's (m, l, acc) for the combine
+    const size_t slot = (static_cast<size_t>(blockIdx.x) * gridDim.y + qi) * sh.splits + sp;
+    float* ml = part_ml + slot * R * 2;
+    float* pacc = part_acc + slot * R * hd;
+    for (int r = tid; r < R; r += kThreads) ml[2 * r] = mrow[r], ml[2 * r + 1] = lrow[r];
+    for (int i = tid; i < R * hd; i += kThreads) pacc[i] = acc[i];
+    return;
+  }
+  for (int i = tid; i < R * hd; i += kThreads) {
+    const int r = i / hd, d = i % hd;
+    const int s = qi * sh.bq + r / sh.G, g = r % sh.G;
+    o[((static_cast<size_t>(b) * sh.S + s) * sh.Kh + kh) * sh.G * hd + g * hd + d] = acc[i] / fmaxf(lrow[r], 1e-30f);
   }
 }
 
@@ -157,36 +226,49 @@ flash_combine_kernel(const float* __restrict__ part_ml, const float* __restrict_
   }
 }
 
-}  // namespace
-
-extern "C" int flash_attend_bf16_launch(const void* q, const void* k, const void* v,
-                                        const void* q_start, const void* valid, const void* window,
-                                        void* part_ml, void* part_acc, void* o, int B, int S, int T,
-                                        int Kh, int G, int hd, int bq, int tk, float scale,
-                                        void* stream) {
+template <int FMT>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* ke, const void* ve,
+                   const void* q_start, const void* valid, const void* window, void* part_ml, void* part_acc,
+                   void* o, int B, const Shape& sh, float scale, cudaStream_t stream) {
   static bool configured = false;  // raise the dynamic shared-memory cap once
   if (!configured) {
     cudaFuncAttributes attr;  // the 227 KB a block may have, less static shared memory
-    cudaError_t err = cudaFuncGetAttributes(&attr, flash_partial_kernel);
+    cudaError_t err = cudaFuncGetAttributes(&attr, flash_kernel<FMT>);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(flash_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  232448 - static_cast<int>(attr.sharedSizeBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
     configured = true;
   }
-  const Shape sh{S, T, Kh, G, hd, bq, tk, T / tk};
-  const int R = bq * G;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(R) * hd + static_cast<size_t>(R) * tk) +
-                      sizeof(__nv_bfloat16) * 2 * static_cast<size_t>(tk) * (hd + 2);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  flash_partial_kernel<<<dim3(B * Kh, S / bq, sh.splits), kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_start),
-      static_cast<const int*>(valid), static_cast<const int*>(window),
-      static_cast<float*>(part_ml), static_cast<float*>(part_acc), sh, scale);
+  const size_t R = static_cast<size_t>(sh.bq) * sh.G;
+  const size_t smem = sizeof(float) * (2 * R * sh.hd + R * sh.tk + 3 * R + 2 * static_cast<size_t>(sh.tk) * (sh.hd + 1));
+  flash_kernel<FMT><<<dim3(B * sh.Kh, sh.S / sh.bq, sh.splits), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), k, v, static_cast<const int8_t*>(ke), static_cast<const int8_t*>(ve),
+      static_cast<const int*>(q_start), static_cast<const int*>(valid), static_cast<const int*>(window),
+      static_cast<float*>(part_ml), static_cast<float*>(part_acc), static_cast<float*>(o), sh, scale);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_combine_kernel<<<dim3(B * Kh, S / bq), kThreads, 0, s>>>(
+  if (err != cudaSuccess || sh.splits == 1) return err;
+  flash_combine_kernel<<<dim3(B * sh.Kh, sh.S / sh.bq), kThreads, 0, stream>>>(
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc), static_cast<float*>(o), sh);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int flash_attend_launch(int fmt, const void* q, const void* k, const void* v, const void* ke,
+                                   const void* ve, const void* q_start, const void* valid, const void* window,
+                                   void* part_ml, void* part_acc, void* o, int B, int S, int T, int Kh, int G,
+                                   int hd, int bq, int tk, int splits, float scale, void* stream) {
+  const Shape sh{S, T, Kh, G, hd, bq, tk, splits};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (fmt == kBf16)
+    err = launch<kBf16>(q, k, v, ke, ve, q_start, valid, window, part_ml, part_acc, o, B, sh, scale, s);
+  else if (fmt == kInt8)
+    err = launch<kInt8>(q, k, v, ke, ve, q_start, valid, window, part_ml, part_acc, o, B, sh, scale, s);
+  else if (fmt == kMx)
+    err = launch<kMx>(q, k, v, ke, ve, q_start, valid, window, part_ml, part_acc, o, B, sh, scale, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }

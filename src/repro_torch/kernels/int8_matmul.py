@@ -3,6 +3,8 @@
 raw int8 weights (the sites the paper's policy pins to 8 bits)."""
 from __future__ import annotations
 
+from collections import Counter
+
 from repro_torch.kernels.fused_qmm import fused_qmm
 
 
@@ -15,7 +17,9 @@ def int8_matmul_fused(x, w_q, scale_m, scale_e, *, group: int, bias=None, act=No
     )
     if x.is_cuda:  # fused_qmm launched the kernel (or raised)
         int8_matmul_fused.launches += 1
+        int8_matmul_fused.mode_launches["m<=8" if x.shape[0] <= 8 else "m>8"] += 1
     return out
 
 
 int8_matmul_fused.launches = 0
+int8_matmul_fused.mode_launches = Counter()  # by rows: "m<=8" (one row block) | "m>8"

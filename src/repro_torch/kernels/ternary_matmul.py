@@ -2,6 +2,8 @@
 ``repro/kernels/ternary_matmul.py::ternary_matmul_fused``)."""
 from __future__ import annotations
 
+from collections import Counter
+
 from repro_torch.kernels.fused_qmm import fused_qmm
 
 
@@ -15,7 +17,9 @@ def ternary_matmul_fused(x, packed, scale_m, scale_e, *, group: int, bias=None, 
     )
     if x.is_cuda:  # fused_qmm launched the kernel (or raised)
         ternary_matmul_fused.launches += 1
+        ternary_matmul_fused.mode_launches["m<=8" if x.shape[0] <= 8 else "m>8"] += 1
     return out
 
 
 ternary_matmul_fused.launches = 0
+ternary_matmul_fused.mode_launches = Counter()  # by rows: "m<=8" (one row block) | "m>8"

@@ -1,13 +1,19 @@
 """Grouped-query attention with qk-norm, RoPE and KV-cache decode
 (counterpart of ``repro/models/attention.py``, dense-family flavours).
 
-Two read paths over the cache, as in the reference:
+Read paths over the cache, as in the reference:
 
-  * ``_attend_dense``: the fold-the-scales oracle over the whole cache,
-  * ``_flash_cache_path``: the hand-written flash kernel
-    (``kernels/flash_prefill.py``), routed for S == 1 steps when
-    ``cfg.flash_decode`` is on.  S > 1 cache-attends (chunked prefill,
-    ``cfg.flash_prefill``) come with the prefill slice.
+  * ``_attend_dense``: the fold-the-scales oracle over the whole cache
+    (per-token power-of-two scales folded into scores and probabilities);
+  * ``_flash_cache_path``: the hand-written flash kernel over the packed
+    cache (``kernels/flash_prefill.py``), routed for S == 1 steps under
+    ``cfg.flash_decode`` and for S > 1 cache-attends (``attend_cache``,
+    chunked prefill) under ``cfg.flash_prefill``;
+  * ``_flash_self_path``: the same kernel over a chunk's own bf16 K/V, the
+    in-chunk tail of a full-prompt ``prefill`` under ``cfg.flash_prefill``.
+
+Without a cache (or without flash) S > 1 attends densely over the chunk,
+or in online-softmax chunks of keys when T > ``chunk``.
 """
 from __future__ import annotations
 
@@ -77,6 +83,30 @@ def _attend_dense_mha(q, k, v, bias):
     return torch.einsum("bhst,bthd->bshd", p, v.to(torch.float32))
 
 
+def _attend_chunked(q, k, v, q_pos, causal, window, chunk: int):
+    """Online softmax over key chunks; q (B,S,H,hd), k/v (B,T,H,hd) with KV
+    repeated to full heads.  The trailing T % chunk keys run as one final
+    partial chunk."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    qf = q.to(torch.float32) * hd**-0.5
+    m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, s, h, hd), dtype=torch.float32, device=q.device)
+    for j0 in range(0, t, chunk):
+        ks, vs = k[:, j0:j0 + chunk], v[:, j0:j0 + chunk]
+        bias = _mask_bias(q_pos, torch.arange(j0, j0 + ks.shape[1], device=q.device), causal, window)
+        bias = bias[None] if bias.ndim == 2 else bias[:, None]
+        sc = torch.einsum("bshd,bthd->bhst", qf, ks.to(torch.float32)) + bias
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr.permute(0, 2, 1)[..., None] + torch.einsum("bhst,bthd->bshd", p, vs.to(torch.float32))
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30).permute(0, 2, 1)[..., None]
+
+
 def _win_arg(window, device) -> torch.Tensor:
     # torch.full fills on the device: no host-to-device copy, no sync
     return torch.full((1, 1), 2**30 if window is None else window, dtype=torch.int32, device=device)
@@ -101,13 +131,36 @@ def _flash_cache_path(q, cache, fmt, q_pos, valid, window, cfg):
     return out.reshape(b, s, cfg.n_heads * hd)
 
 
+def _flash_self_path(q, k, v, window, cfg):
+    """In-chunk self-attention tail through the flash kernel: the chunk's
+    own just-projected K/V stand in for a kv_bf16 cache, positions are
+    chunk-relative, the fill level is the whole chunk."""
+    from repro_torch.kernels.flash_prefill import flash_attend
+
+    b, s = q.shape[0], q.shape[1]
+    hd, kh = cfg.hd(), cfg.n_kv_heads
+    g = cfg.n_heads // kh
+    qf = q.reshape(b, s, kh, g, hd).to(torch.float32).contiguous()
+    out = flash_attend(
+        qf, k.contiguous(), v.contiguous(), None, None,
+        torch.zeros((b, 1), dtype=torch.int32, device=q.device),
+        torch.full((b, 1), k.shape[1], dtype=torch.int32, device=q.device),
+        _win_arg(window, q.device), fmt="kv_bf16",
+    )
+    return out.reshape(b, s, cfg.n_heads * hd)
+
+
 def attention(
     p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, ctx: QuantCtx, path: str,
     *, causal: bool = True, window: Optional[int] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None, cache_index=None,
-    chunk: int = 1024,
+    chunk: int = 1024, attend_cache: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Returns (output (B,S,d), the cache written in place, or None)."""
+    """Returns (output (B,S,d), the cache written in place, or None).
+
+    ``attend_cache`` makes an S > 1 chunk attend over the WHOLE cache after
+    its K/V are written at ``cache_index``, so earlier chunks of the same
+    prompt stay visible (chunked prefill)."""
     hd = cfg.hd()
     g = cfg.n_heads // cfg.n_kv_heads
 
@@ -121,13 +174,14 @@ def attention(
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     q_pos = positions
 
-    decode = cache is not None and x.shape[1] == 1
+    decode = cache is not None and (x.shape[1] == 1 or attend_cache)
     if cache is not None:
         fmt = kv_cache.resolve_kv_fmt(cfg)
         cache, valid = kv_cache.write(fmt, cache, k, v, cache_index)
 
     if decode:
-        if cfg.flash_decode:
+        flash = cfg.flash_decode if x.shape[1] == 1 else cfg.flash_prefill and causal
+        if flash:
             out = _flash_cache_path(q, cache, fmt, q_pos, valid, window, cfg)
         else:
             ck, cv, kscale, vscale = kv_cache.attend_view(fmt, cache)
@@ -140,19 +194,20 @@ def attention(
         out = out.to(x.dtype)
         return dense(p["wo"], out, f"{path}/wo", ctx), cache
 
-    if cache is not None and cfg.flash_prefill:
-        raise NotImplementedError("flash prefill (S > 1 with a cache) is not ported yet")
+    if cache is not None and x.shape[1] > 1 and causal and cfg.flash_prefill:
+        out = _flash_self_path(q, k, v, window, cfg).to(x.dtype)
+        return dense(p["wo"], out, f"{path}/wo", ctx), cache
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
     t = k.shape[1]
     if t > chunk:
-        raise NotImplementedError("chunked online-softmax prefill (T > chunk) is not ported yet")
-    if causal or window is not None:
+        out = _attend_chunked(q, k, v, q_pos, causal, window, chunk)
+    elif causal or window is not None:
         bias = _mask_bias(q_pos, torch.arange(t, device=x.device), causal, window)
         bias = bias[None] if bias.ndim == 2 else bias[:, None]
+        out = _attend_dense_mha(q, k, v, bias)
     else:
-        bias = torch.zeros((), dtype=torch.float32, device=x.device)
-    out = _attend_dense_mha(q, k, v, bias)
+        out = _attend_dense_mha(q, k, v, torch.zeros((), dtype=torch.float32, device=x.device))
     out = out.reshape(*x.shape[:2], cfg.n_heads * hd).to(x.dtype)
     return dense(p["wo"], out, f"{path}/wo", ctx), cache

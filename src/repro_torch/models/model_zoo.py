@@ -3,7 +3,18 @@
 
 ``build_model(cfg)`` returns a ``ModelApi`` bound to a device -- the card
 unless the caller passes ``device="cpu"``; with no card and no explicit
-CPU request it raises.
+CPU request it raises.  Its members:
+
+  init(generator) -> params
+  forward(params, batch) -> logits
+  init_cache(batch, max_len) -> cache
+  prefill(params, batch, cache) -> (last-token logits, cache)
+  decode(params, token, pos, cache) -> (logits, cache)
+  prefill_chunk(params, tokens, start, cache) -> (last-token logits, cache)
+      one (B, S) chunk of prompt at [start, start + S) against the whole cache
+  insert(cache, prefix, slot) -> cache
+      a B=1 prefix cache copied into batch row ``slot`` (every leaf's row
+      is overwritten, so nothing of the slot's previous occupant survives)
 """
 from __future__ import annotations
 
@@ -28,12 +39,23 @@ class ModelApi:
     forward: Callable  # (params, batch) -> logits
     init_cache: Callable  # (batch, max_len) -> cache
     decode: Callable  # (params, token, pos, cache) -> (logits, cache)
+    prefill: Optional[Callable] = None  # (params, batch, cache) -> (logits, cache)
+    prefill_chunk: Optional[Callable] = None  # (params, tokens, start, cache) -> (logits, cache)
+    insert: Optional[Callable] = None  # (cache, prefix, slot) -> cache
 
     def with_ctx(self, ctx: QuantCtx) -> "ModelApi":
         return build_model(self.cfg, ctx, device=self.device)
 
     def with_plan(self, plan: QuantPlan) -> "ModelApi":
         return self.with_ctx(QuantCtx.for_plan(plan))
+
+
+def insert_prefix(cache, prefix, slot: int):
+    """Copy a B=1 ``prefix`` cache into batch row ``slot`` of ``cache``, in
+    place (every leaf is stacked (layers, B, ...), so the batch axis is 1)."""
+    for name, leaf in cache.items():
+        leaf[:, int(slot)] = prefix[name][:, 0]
+    return cache
 
 
 def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None) -> ModelApi:
@@ -47,6 +69,9 @@ def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None)
         forward=lambda p, b: transformer.forward(p, b["tokens"], cfg, ctx),
         init_cache=lambda b, m: transformer.init_cache(cfg, b, m, device=dev),
         decode=lambda p, t, pos, c: transformer.decode_step(p, t, pos, cfg, ctx, c),
+        prefill=lambda p, b, c: transformer.prefill(p, b["tokens"], cfg, ctx, c),
+        prefill_chunk=lambda p, t, start, c: transformer.prefill_chunk(p, t, start, cfg, ctx, c),
+        insert=insert_prefix,
     )
 
 

@@ -1,11 +1,15 @@
 """Decoder-only LM, dense family (counterpart of
-``repro/models/transformer.py``; global attention only -- sliding-window
-layers, MoE and M-RoPE come with their families).
+``repro/models/transformer.py``; MoE and M-RoPE come with their families).
 
 The reference stacks layers on a leading axis and scans; the port keeps
 ``params["blocks"]`` as a list of per-layer dicts and loops in Python.  The
-KV cache keeps the reference's stacked (L, B, T, Kh, hd) leaves; layer i
+KV cache keeps the reference's stacked (L, B, T, ...) leaves; layer i
 works on the contiguous view ``cache[n][i]``, written in place.
+
+Serving entry points: ``prefill`` (a whole prompt at positions [0, S)),
+``prefill_chunk`` (one chunk at [start, start + S) attending over the whole
+cache, so earlier chunks stay visible) and ``decode_step`` (one token per
+batch row, at a shared or a per-row position).
 """
 from __future__ import annotations
 
@@ -20,6 +24,17 @@ from repro_torch.quant.plan import QuantCtx
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def window_schedule(cfg, seq_len: int) -> Optional[torch.Tensor]:
+    """Per-layer attention window (int32); None when the arch has no local
+    layers (qwen3)."""
+    if not cfg.sliding_window:
+        return None
+    ratio = cfg.local_global_ratio
+    win = [seq_len + 1 if ratio and (i + 1) % (ratio + 1) == 0 else cfg.sliding_window
+           for i in range(cfg.n_layers)]
+    return torch.tensor(win, dtype=torch.int32)
 
 
 def init_block(gen, cfg, dtype, device, leaf=layers.keep) -> Dict[str, Any]:
@@ -43,11 +58,12 @@ def init_lm(gen: torch.Generator, cfg, device, leaf=layers.keep) -> Dict[str, An
     }
 
 
-def _block_apply(bp, x, positions, cfg, ctx: QuantCtx, cache=None, cache_index=None):
+def _block_apply(bp, x, positions, cfg, ctx: QuantCtx, window=None, cache=None, cache_index=None,
+                 attend_cache=False):
     h = layers.rmsnorm(bp["ln1"], x, cfg.norm_eps)
     a, cache = attn_lib.attention(
-        bp["attn"], h, positions, cfg, ctx, "blocks/attn", causal=True,
-        cache=cache, cache_index=cache_index,
+        bp["attn"], h, positions, cfg, ctx, "blocks/attn", causal=True, window=window,
+        cache=cache, cache_index=cache_index, attend_cache=attend_cache,
     )
     x = x + a
     h = layers.rmsnorm(bp["ln2"], x, cfg.norm_eps)
@@ -59,8 +75,9 @@ def hidden(params, tokens: torch.Tensor, cfg, ctx: QuantCtx,
     x = layers.embed(params["embed"], tokens)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    for bp in params["blocks"]:
-        x, _ = _block_apply(bp, x, positions, cfg, ctx)
+    win = window_schedule(cfg, x.shape[1])
+    for i, bp in enumerate(params["blocks"]):
+        x, _ = _block_apply(bp, x, positions, cfg, ctx, None if win is None else int(win[i]))
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -74,6 +91,38 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cpu"
     return kv_cache.init_cache(cfg, (cfg.n_layers, batch), max_len, dtype, device)
 
 
+def _cache_layers(params, x, positions, cfg, ctx, cache, cache_index, attend_cache=False):
+    """Every block over its layer of the cache (written in place)."""
+    win = window_schedule(cfg, cache["k"].shape[2])
+    for i, bp in enumerate(params["blocks"]):
+        layer_cache = {n: leaf[i] for n, leaf in cache.items()}
+        x, _ = _block_apply(bp, x, positions, cfg, ctx, None if win is None else int(win[i]),
+                            cache=layer_cache, cache_index=cache_index, attend_cache=attend_cache)
+    return x
+
+
+def prefill(params, tokens: torch.Tensor, cfg, ctx: QuantCtx, cache):
+    """Fill the cache with S tokens at [0, S); returns (last-token logits, cache)."""
+    x = layers.embed(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _cache_layers(params, x, positions, cfg, ctx, cache, 0)
+    x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return layers.dense(params["lm_head"], x, "lm_head", ctx), cache
+
+
+def prefill_chunk(params, tokens: torch.Tensor, start: int, cfg, ctx: QuantCtx, cache):
+    """Consume one (B, S) chunk of a prompt at cache positions [start,
+    start + S), attending over the WHOLE cache (earlier chunks of the same
+    prompt stay visible).  Returns (last-token logits, cache); only the
+    final chunk's logits matter to a caller sampling the first token."""
+    start = int(start)
+    x = layers.embed(params["embed"], tokens)
+    positions = start + torch.arange(x.shape[1], device=x.device)
+    x = _cache_layers(params, x, positions, cfg, ctx, cache, start, attend_cache=True)
+    x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return layers.dense(params["lm_head"], x, "lm_head", ctx), cache
+
+
 def decode_step(params, token: torch.Tensor, pos, cfg, ctx: QuantCtx, cache):
     """One decode step.  token (B, 1) int; pos a scalar or per-slot (B,)."""
     x = layers.embed(params["embed"], token)
@@ -81,8 +130,6 @@ def decode_step(params, token: torch.Tensor, pos, cfg, ctx: QuantCtx, cache):
         positions = pos[:, None].to(torch.int32)
     else:
         positions = torch.full((token.shape[0], 1), int(pos), dtype=torch.int32, device=x.device)
-    for i, bp in enumerate(params["blocks"]):
-        layer_cache = {n: leaf[i] for n, leaf in cache.items()}
-        x, _ = _block_apply(bp, x, positions, cfg, ctx, cache=layer_cache, cache_index=pos)
+    x = _cache_layers(params, x, positions, cfg, ctx, cache, pos)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.dense(params["lm_head"], x, "lm_head", ctx), cache

@@ -1,10 +1,12 @@
-"""Port vs reference: flash attention over a kv_bf16 cache.
+"""Port vs reference: flash attention over the packed KV cache.
 
 The port's ``flash_attend`` / ``flash_decode`` on CPU tensors (the kernel's
 plain version) against the reference's ``flash_attend`` (interpret mode)
 and against the port's own ``_attend_dense`` oracle, at atol 5e-5 -- the
 reference's own tolerance (``tests/test_flash_prefill.py``): the two sum
-the scores in different orders.
+the scores in different orders.  kv_int8 and kv_mx caches are random
+packed codes and exponents (mx blocks past the fill level hold the empty
+sentinel -127), handed to both packages as the same numpy bytes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -47,7 +49,7 @@ def _dense(q, kt, vt, starts, valid, window):
     return _attend_dense(torch.from_numpy(q), kt, vt, bias[:, None, None]).numpy()
 
 
-@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("s", [1, 4, 13])
 @pytest.mark.parametrize("kh,g", [(2, 2), (4, 1)], ids=["gqa", "mha"])
 @pytest.mark.parametrize("window", [None, 8], ids=["global", "window"])
 def test_flash_attend_matches_reference(s, kh, g, window):
@@ -61,6 +63,36 @@ def test_flash_attend_matches_reference(s, kh, g, window):
     ))
     np.testing.assert_allclose(got, want, atol=5e-5)
     np.testing.assert_allclose(got, _dense(q, kt, vt, st, valid, window), atol=5e-5)
+
+
+def _packed_case(fmt, b, t, kh, g, hd, s, starts, window, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, s, kh, g, hd)).astype(np.float32)
+    starts = np.asarray(starts, np.int32).reshape(b, 1)
+    valid = starts + s
+    win = np.full((1, 1), 2**30 if window is None else window, np.int32)
+    if fmt == "kv_int8":
+        k, v = (rng.integers(-127, 128, size=(b, t, kh, hd)).astype(np.int8) for _ in range(2))
+        ke, ve = (rng.integers(-9, -4, size=(b, t, kh, 1)).astype(np.int8) for _ in range(2))
+    else:
+        k, v = (rng.integers(0, 256, size=(b, t, kh, hd // 2)).astype(np.uint8) for _ in range(2))
+        ke, ve = (rng.integers(-3, 1, size=(b, t // 32, kh, 1)).astype(np.int8) for _ in range(2))
+        empty = np.arange(t // 32)[None, :, None, None] * 32 >= valid[:, :, None, None]
+        ke, ve = (np.where(empty, np.int8(-127), e) for e in (ke, ve))  # blocks past the fill level
+    return q, k, v, ke, ve, starts, valid, win
+
+
+@pytest.mark.parametrize("fmt", ["kv_int8", "kv_mx"])
+@pytest.mark.parametrize("s", [1, 4, 13])
+@pytest.mark.parametrize("kh,g", [(2, 2), (4, 1)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("window", [None, 8], ids=["global", "window"])
+def test_flash_attend_quantized_cache_matches_reference(fmt, s, kh, g, window):
+    b, t, hd = 3, 64, 16
+    q, k, v, ke, ve, st, valid, win = _packed_case(fmt, b, t, kh, g, hd, s, [0, 19, 45], window, seed=s)
+    arrays = (q, k, v, ke, ve, st, valid, win)
+    got = flash_attend(*(torch.from_numpy(a) for a in arrays), fmt=fmt).numpy()
+    want = np.asarray(jflash(*(jnp.asarray(a) for a in arrays), fmt=fmt, interpret=True))
+    np.testing.assert_allclose(got, want, atol=5e-5)
 
 
 def test_flash_attend_small_blocks_many_kv_tiles():
@@ -84,10 +116,11 @@ def test_flash_decode_entry():
 
 
 def test_unported_formats_raise():
+    """A cache format with no flash kernel is refused, on the CPU too."""
     q, kt, vt, _, _, st, valid, win = _case(1, 32, 1, 1, 8, 1, [3], None)
     with pytest.raises(NotImplementedError):
         flash_attend(torch.from_numpy(q), kt, vt, None, None, torch.from_numpy(st),
-                     torch.from_numpy(valid), torch.from_numpy(win), fmt="kv_int8")
+                     torch.from_numpy(valid), torch.from_numpy(win), fmt="kv_fp8")
 
 
 def test_block_pickers_match_reference():
@@ -98,3 +131,7 @@ def test_block_pickers_match_reference():
         assert pick_q_block(s, g) == jq(s, g)
     for t in (256, 2048, 96, 13):
         assert pick_kv_block(t, "kv_bf16") == jkv(t, "kv_bf16")
+        assert pick_kv_block(t, "kv_int8", 32) == jkv(t, "kv_int8", 32)
+    for t in (32, 96, 1024, 2048):
+        for want in (32, 128):
+            assert pick_kv_block(t, "kv_mx", want) == jkv(t, "kv_mx", want)

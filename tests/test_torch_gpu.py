@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_prefill import flash_attend, flash_attend_ref
+from repro_torch.models import kv_cache
 from repro_torch.kernels.fused_qmm import fused_qmm_ref
 from repro_torch.kernels.int8_matmul import int8_matmul_fused
 from repro_torch.kernels.ternary_matmul import ternary_matmul_fused
@@ -57,6 +58,68 @@ def test_flash_attend_matches_plain(dev, s, g):
     want = flash_attend_ref(q, k, v, None, None, start, valid, win, fmt="kv_bf16")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("m", [17, 64, 256])
+def test_fused_qmm_prefill_rows_bit_exact(dev, m):
+    """Row blocks past the first (M > 8): prefill-chunk projections."""
+    gen = torch.Generator(device=dev).manual_seed(m)
+    k, n, group = 2048, 512, 64
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev), 2, group)
+    x = (torch.randn((m, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    got = ternary_matmul_fused(x, qt.packed, qt.scale_m, qt.scale_e, group=group, act="silu")
+    want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode="ternary", group=group, act="silu")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _packed_cache(fmt, b, t, kh, hd, gen, dev):
+    """A cache filled by the port's own quantize-on-write."""
+    c = kv_cache.get_kv_format(fmt).init((b,), t, kh, hd, torch.bfloat16, dev)
+    x = lambda: (torch.randn((b, t, kh, hd), generator=gen, device=dev) * 2).to(torch.bfloat16)  # noqa: E731
+    kv_cache.write(fmt, c, x(), x(), 0)
+    return c
+
+
+@pytest.mark.parametrize("fmt", ["kv_bf16", "kv_int8", "kv_mx"])
+@pytest.mark.parametrize("s,starts", [(1, [0, 69, 127]), (4, [0, 37, 124]), (32, [0, 32, 96])])
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_packed_cache_matches_plain(dev, fmt, s, starts, window):
+    gen = torch.Generator(device=dev).manual_seed(s)
+    b, t, kh, g, hd = 3, 128, 2, 4, 64
+    c = _packed_cache(fmt, b, t, kh, hd, gen, dev)
+    q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev).reshape(b, 1)
+    valid = start + s
+    win = torch.tensor([[2**30 if window is None else window]], dtype=torch.int32, device=dev)
+    args = (q, c["k"], c["v"], c.get("ke"), c.get("ve"), start, valid, win)
+    got = flash_attend(*args, fmt=fmt)
+    want = flash_attend_ref(*args, fmt=fmt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+
+
+def test_flash_in_chunk_tail_matches_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, kh, g, hd = 2, 96, 2, 4, 128
+    q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev)
+    k = torch.randn((b, s, kh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    zero = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    full = torch.full((b, 1), s, dtype=torch.int32, device=dev)
+    win = torch.tensor([[2**30]], dtype=torch.int32, device=dev)
+    got = flash_attend(q, k, v, None, None, zero, full, win, fmt="kv_bf16")
+    want = flash_attend_ref(q, k, v, None, None, zero, full, win, fmt="kv_bf16")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+
+
+def test_flash_rejects_rows_too_narrow_for_16_byte_loads(dev):
+    c = kv_cache.get_kv_format("kv_mx").init((1,), 64, 1, 16, torch.bfloat16, dev)
+    q = torch.randn((1, 1, 1, 1, 16), device=dev)
+    one = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attend(q, c["k"], c["v"], c["ke"], c["ve"], one - 1, one, one, fmt="kv_mx")
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

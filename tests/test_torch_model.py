@@ -165,3 +165,22 @@ def test_build_model_without_device_needs_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             tbuild(cfg)
+
+
+@pytest.mark.parametrize("window", [None, 7], ids=["global", "window"])
+@pytest.mark.parametrize("t", [32, 40], ids=["whole_chunks", "partial_chunk"])
+def test_attend_chunked_matches_reference(window, t):
+    """Online softmax over key chunks (prefill with T > chunk) against the
+    reference's ``_attend_chunked`` and the port's dense attention."""
+    from repro.models.attention import _attend_chunked as jchunked
+    from repro_torch.models.attention import _attend_chunked, _attend_dense_mha, _mask_bias
+
+    rng = np.random.default_rng(t)
+    q, k, v = (rng.normal(size=(2, t, 3, 8)).astype(np.float32) for _ in range(3))
+    pos = np.arange(t)
+    want = np.asarray(jchunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos), True, window, 16))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = _attend_chunked(tq, tk, tv, torch.from_numpy(pos), True, window, 16).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    dense = _attend_dense_mha(tq, tk, tv, _mask_bias(torch.from_numpy(pos), torch.arange(t), True, window)[None])
+    np.testing.assert_allclose(got, dense.numpy(), atol=1e-5)
