@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero:
                  ulps) and ternary at M = 17, 64, 256 (0 ulps); flash
                  kv_bf16 at decode; kv_int8 and kv_mx at decode (B 4,
                  T 1024); all three formats at a prefill chunk (S 256 from
-                 512, T 1024) and the in-chunk tail (S = T = 256), 5e-5
+                 512, T 1024) and the in-chunk tail (S = T = 256), 5e-5;
+                 fused int4 and nf4 on every site of a layer at M = 4 and
+                 17/64/256, packed_qmm for all five formats, quantize_rows
+                 (bf16, f32; NaN, exact-edge, zero and subnormal rows), all
+                 0 ulps, and the unfused site equal to the fused one
   4. main     -- serve the full-width qwen3-8b (ternary PTQ, group 64, all
                  36 layers, bf16, random weights from a seeded generator,
                  quantized on the card one site at a time) through the
@@ -34,7 +38,15 @@ Phases, in order; any failure exits non-zero:
                  path against plain path, for kv_int8 and kv_mx (float32:
                  logits 5e-3, equal argmax; the PTQ model: qdense leg
                  bit-identical, picks within the observed difference)
-  6. timings  -- kernel, plain version, library call (a yardstick the port
+  6. formats  -- the paper's 4-bit weights: int4 (group 64), all 36 layers,
+                 through the StagedEngine over kv_int8 with the same traffic
+                 (traced chunk and ticks); nf4 (group 64) and mx (group 32)
+                 at 4 layers; every site fused=False at 4 layers for
+                 ternary, int4 and nf4 (quantize_rows and packed_qmm only,
+                 no fused launch), its tokens equal to the fused run's on
+                 the same weights; the 2-layer int4 PTQ twin (qdense leg
+                 bit-identical)
+  7. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
 
 The last two lines are the `kernels` JSON and the device JSON.
@@ -69,6 +81,8 @@ QDENSE_SITES = [  # (name, K, N, decode, act) -- one layer's sites, then lm_head
     ("gate", 4096, 12288, "ternary", "silu"), ("up", 4096, 12288, "ternary", None),
     ("down", 12288, 4096, "ternary", None), ("lm_head", 4096, 152064, "int8", None),
 ]
+LAYER_SITES = QDENSE_SITES[:-1]  # the 7 projections of one block
+FORMATS = ("ternary", "int4", "int8", "nf4", "mx")
 M_ROWS = SLOTS  # rows per decode-tick projection
 PREFILL_ROWS = (17, 64, 256)  # prefill-chunk projections: row blocks past the first
 # the staged path: 4 slots over a 1024-token kv_int8 cache, 256-token chunks;
@@ -86,7 +100,14 @@ MODES = {
     "fused_qmm_int8": ("int8", None),
     **{f"flash_attend_{SHORT[f]}{sfx}": ("flash", f"{f}/{mode}")
        for f in SHORT for sfx, mode in (("", "decode"), ("_prefill", "prefill"))},
+    "fused_qmm_int4": ("int4", "m<=8"), "fused_qmm_int4_prefill": ("int4", "m>8"),
+    "fused_qmm_nf4": ("nf4", "m<=8"), "fused_qmm_nf4_prefill": ("nf4", "m>8"),
+    "packed_qmm_ternary": ("ternary_packed", None), "packed_qmm_int4": ("int4_packed", "m<=8"),
+    "packed_qmm_int4_prefill": ("int4_packed", "m>8"), "packed_qmm_int8": ("int8_packed", None),
+    "packed_qmm_nf4": ("nf4_packed", None),
+    "quantize_rows": ("quantize_rows", "m<=8"), "quantize_rows_prefill": ("quantize_rows", "m>8"),
 }
+FUSED_ROWS = [name for name in MODES if name.startswith("fused_qmm")]
 
 
 def log(msg: str) -> None:
@@ -128,11 +149,11 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 # 3. parity
 # ---------------------------------------------------------------------------
-def _qsite(k, n, decode, gen, dev):
+def _qsite(k, n, fmt, gen, dev):
     from repro_torch.quant.formats import quantize_weights
 
     w = torch.randn((k, n), generator=gen, device=dev) * k**-0.5
-    return quantize_weights(w, 2 if decode == "ternary" else 8, GROUP, fmt=decode)
+    return quantize_weights(w, group_size=GROUP, fmt=fmt)  # mx pins its own group, 32
 
 
 def _edge_rows(k, gen, dev, dtype):
@@ -147,11 +168,11 @@ def _edge_rows(k, gen, dev, dtype):
     return x.to(dtype)
 
 
-def _entry(decode):
-    from repro_torch.kernels.int8_matmul import int8_matmul_fused
-    from repro_torch.kernels.ternary_matmul import ternary_matmul_fused
+def _entry(fmt):
+    """The format's fused kernel entry."""
+    from repro_torch.quant.formats import get_format
 
-    return ternary_matmul_fused if decode == "ternary" else int8_matmul_fused
+    return get_format(fmt).fused_kernel
 
 
 def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -211,6 +232,7 @@ def phase_parity(dev) -> dict:
                 failures.append(f"flash S={s} window={window}")
     failures += _parity_prefill_rows(dev, gen, errs)
     failures += _parity_packed_flash(dev, gen, errs)
+    failures += _parity_formats(dev, gen, errs)
     if failures:
         raise SystemExit(f"parity failed: {failures}")
     return errs
@@ -299,14 +321,116 @@ def _parity_packed_flash(dev, gen, errs) -> list:
     return failures
 
 
+def _rows(m, k, gen, dev, dtype, edge=True):
+    """(m, k) activations: random rows; with ``edge``, the first 4 rows are
+    ``_edge_rows``' and, where m > 5, row 4 is all zero and row 5's
+    maximum is subnormal."""
+    x = torch.randn((m, k), generator=gen, device=dev) * 0.1
+    if edge:
+        x[:M_ROWS] = _edge_rows(k, gen, dev, dtype).float()
+    if edge and m > 5:
+        x[4] = 0.0
+        x[5] = torch.randn((k,), generator=gen, device=dev) * 1e-40
+    return x.to(dtype)
+
+
+def _zero_subnormal_rows(k, gen, dev, dtype):
+    """4 rows: all zero, a subnormal maximum, then two plain rows."""
+    x = torch.randn((M_ROWS, k), generator=gen, device=dev) * 0.1
+    x[0] = 0.0
+    x[1] = torch.randn((k,), generator=gen, device=dev) * 1e-40
+    return x.to(dtype)
+
+
+def _decode_of(fmt: str) -> str:
+    return "int8" if fmt == "mx" else fmt  # mx runs the int8 kernels
+
+
+def _parity_formats(dev, gen, errs) -> list:
+    """This slice's modes against their plain versions at 0 ulps: fused
+    int4 and nf4 on every site of one layer (M = 4 in bf16 and f32, dynamic
+    and static exponent; M = 17/64/256 in bf16); packed_qmm for all five
+    formats and the unfused site (quantize_rows -> packed_qmm -> exponents
+    -> activation) against the fused kernel on wq, gate and down at M = 4
+    and 256; quantize_rows in bf16 and f32 at (4, 4096) and (256, 12288)."""
+    from repro_torch.kernels.fused_qmm import fused_qmm_ref
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows, quantize_rows_plain
+    from repro_torch.quant import qdense
+    from repro_torch.quant.formats import get_format
+
+    failures = []
+
+    def check(key, what, got, want):
+        torch.cuda.synchronize()
+        ulps = _ulps(got, want)
+        err = float((got - want).abs().max())
+        if key:
+            errs[key] = max(errs[key], err)
+        ok = bool(torch.isfinite(got).all()) and ulps == 0
+        log(f"parity {what}: max_abs_err={err:.3e} ulps={ulps} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    for fmt in ("int4", "nf4"):
+        for name, k, n, _, act in LAYER_SITES:
+            qt = _qsite(k, n, fmt, gen, dev)
+            cases = [(M_ROWS, dt, se) for dt in (torch.bfloat16, torch.float32) for se in (None, -4)]
+            cases += [(m, torch.bfloat16, None) for m in PREFILL_ROWS]
+            for m, dtype, static_e in cases:
+                x = _rows(m, k, gen, dev, dtype)
+                kw = dict(group=GROUP, act=act, act_exponent=static_e)
+                got = _entry(fmt)(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
+                want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=fmt, **kw)
+                check(f"fused_qmm_{fmt}{'' if m <= 8 else '_prefill'}",
+                      f"qdense {name:7s} K={k:5d} N={n:5d} {fmt} M={m:3d} x={str(dtype)[6:]} static_e={static_e} "
+                      f"act={act}", got, want)
+            del qt
+    for fmt in FORMATS:
+        decode = _decode_of(fmt)
+        for name, k, n, _, act in (LAYER_SITES[0], LAYER_SITES[4], LAYER_SITES[6]):  # wq, gate, down
+            qt = _qsite(k, n, fmt, gen, dev)
+            for m in (M_ROWS, PREFILL_ROWS[-1]):
+                x = _rows(m, k, gen, dev, torch.bfloat16)
+                xq, _ = quantize_rows(x)
+                got = get_format(fmt).kernel(xq, qt.packed, qt.scale_m, group=qt.group_size)
+                want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size)
+                key = f"packed_qmm_{decode}{'_prefill' if decode == 'int4' and m > 8 else ''}"
+                check(key, f"packed_qmm {name:7s} K={k:5d} N={n:5d} {fmt} M={m:3d}", got, want)
+                kw = dict(act=act, backend="cuda")
+                check(None, f"unfused == fused {name:7s} {fmt} M={m:3d} act={act}",
+                      qdense(x, qt, fused=False, **kw), qdense(x, qt, fused=True, **kw))
+            del qt
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = [("(4, 4096) edge rows", _rows(M_ROWS, 4096, gen, dev, dtype)),
+                 ("(4, 4096) zero/subnormal rows", _zero_subnormal_rows(4096, gen, dev, dtype)),
+                 ("(256, 12288)", _rows(PREFILL_ROWS[-1], 12288, gen, dev, dtype))]
+        for what, x in cases:
+            q, e = quantize_rows(x)
+            wq, we = quantize_rows_plain(x)
+            torch.cuda.synchronize()
+            same = torch.equal(q, wq) and torch.equal(e, we)
+            err = float((q.float() - wq.float()).abs().max())
+            key = "quantize_rows" if x.shape[0] <= 8 else "quantize_rows_prefill"
+            errs[key] = max(errs[key], err)
+            log(f"parity quantize_rows {what} x={str(dtype)[6:]}: mantissas and exponents "
+                f"{'identical OK' if same else 'differ FAIL'} (max |dq| {err:.0f}; exponents {e[:6, 0].tolist()})")
+            if not same:
+                failures.append(f"quantize_rows {what} {dtype}")
+    return failures
+
+
 # ---------------------------------------------------------------------------
 # 4. main path
 # ---------------------------------------------------------------------------
-def _ptq_cfg(n_layers=None, **over):
+def _ptq_cfg(n_layers=None, quant=None, **over):
+    """The full-width PTQ config: ternary group 64 unless ``quant`` (a dict
+    of QuantConfig fields) says otherwise."""
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
 
-    cfg = configs.get_config(ARCH, QuantConfig(w_bits=2, group_size=GROUP, mode="ptq", backend="auto"))
+    q = dict(dict(w_bits=2, group_size=GROUP, mode="ptq", backend="auto"), **(quant or {}))
+    cfg = configs.get_config(ARCH, QuantConfig(**q))
     cfg = dataclasses.replace(cfg, flash_decode=True, **over)
     return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
 
@@ -319,11 +443,17 @@ def _boot(cfg, dev):
 
 
 def _entries():
+    """Every counted kernel entry: the fused entries by format name, the
+    packed ones as "<format>_packed", flash and quantize_rows."""
     from repro_torch.kernels.flash_prefill import flash_attend
-    from repro_torch.kernels.int8_matmul import int8_matmul_fused
-    from repro_torch.kernels.ternary_matmul import ternary_matmul_fused
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.quant.formats import get_format
 
-    return {"ternary": ternary_matmul_fused, "int8": int8_matmul_fused, "flash": flash_attend}
+    out = {"flash": flash_attend, "quantize_rows": quantize_rows}
+    for fmt in ("ternary", "int8", "int4", "nf4"):  # mx's entries are int8's
+        out[fmt] = get_format(fmt).fused_kernel
+        out[f"{fmt}_packed"] = get_format(fmt).kernel
+    return out
 
 
 def _reset_counts() -> None:
@@ -489,23 +619,33 @@ def _pcts_ms(p) -> str:
     return "n/a" if p is None else f"p50 {p['p50'] * 1e3:.1f} / p95 {p['p95'] * 1e3:.1f} / p99 {p['p99'] * 1e3:.1f} ms"
 
 
-def _serve_staged(dev, kv_fmt: str, n_layers: int, required, trace: bool) -> dict:
-    """Serve the staged traffic over ``kv_fmt`` at ``n_layers``; returns the
-    launches of this run, which must include every mode in ``required``."""
+def _with_fused(plan, fused: bool):
+    """``plan`` with every site's fused knob set to ``fused``."""
+    return dataclasses.replace(
+        plan, site_precisions=tuple(dataclasses.replace(p, fused=fused) for p in plan.site_precisions))
+
+
+def _serve_staged(dev, cfg, required, *, trace=False, booted=None, unfused=False, label=None):
+    """Serve the staged traffic with ``cfg`` (booted here unless ``booted``
+    gives (qparams, plan, api)); every site ``fused=False`` if ``unfused``.
+    Returns (the launches of this run, which must include every mode in
+    ``required``; {uid: tokens})."""
     from repro_torch.models.kv_cache import cache_bytes
     from repro_torch.serving import Request, SchedulerConfig, StagedEngine
 
-    cfg = _ptq_cfg(n_layers, kv_fmt=kv_fmt, flash_prefill=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    qparams, plan, api = _boot(cfg, dev)
+    qparams, plan, api = booted or _boot(cfg, dev)
+    if unfused:
+        api = api.with_plan(_with_fused(plan, False))
     eng = StagedEngine(api, qparams, n_slots=STAGED_SLOTS, max_len=STAGED_MAX_LEN,
                        sched=SchedulerConfig(prefill_chunk=STAGED_CHUNK, policy="decode"))
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
-    label = f"staged {kv_fmt} {cfg.n_layers}L"
-    log(f"{label}: boot {boot_s:.2f} s; kv cache {cache_bytes(eng.cache) / 1e9:.3f} GB "
-        f"({STAGED_SLOTS} slots x {STAGED_MAX_LEN}); prompts {STAGED_PROMPTS}, {NEW} new tokens each")
+    label = label or f"staged {cfg.kv_fmt} {cfg.n_layers}L"
+    log(f"{label}: {'boot' if booted is None else 'engine'} {boot_s:.2f} s; kv cache "
+        f"{cache_bytes(eng.cache) / 1e9:.3f} GB ({STAGED_SLOTS} slots x {STAGED_MAX_LEN}); packed weights "
+        f"{sum(qt.nbytes() for qt in _qtensors(qparams)) / 1e9:.3f} GB; prompts {STAGED_PROMPTS}, {NEW} new tokens each")
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW) for i, p in enumerate(_staged_prompts(cfg, SEED + 10))]
     _reset_counts()
     t0 = time.perf_counter()
@@ -523,6 +663,8 @@ def _serve_staged(dev, kv_fmt: str, n_layers: int, required, trace: bool) -> dic
         f"queue wait {_pcts_ms(lat['queue_wait'])}")
     log(f"{label}: launches {({k: v for k, v in launches.items() if v})}")
     _require_launches(launches, required, label)
+    if unfused and any(launches[name] for name in FUSED_ROWS):
+        raise SystemExit(f"{label}: a fused kernel launched on the fused=False path")
     if len(done) != len(reqs) or any(len(r.output) != NEW for r in done) or eng.leftover()["in_flight"]:
         raise SystemExit(f"{label}: not every request finished with its tokens")
     if any(not 0 <= t < cfg.padded_vocab for r in done for t in r.output):
@@ -532,9 +674,10 @@ def _serve_staged(dev, kv_fmt: str, n_layers: int, required, trace: bool) -> dic
     log(f"{label}: first outputs {[r.output[:6] for r in sorted(done, key=lambda r: r.uid)[:2]]}")
     if trace:
         _trace_staged(eng, cfg)
+    outputs = {r.uid: r.output for r in done}
     del eng, qparams
     torch.cuda.empty_cache()
-    return launches
+    return launches, outputs
 
 
 def _trace_staged(eng, cfg) -> None:
@@ -572,7 +715,9 @@ def phase_staged(dev) -> dict:
             ("kv_bf16", SMALL_DEPTH, ["flash_attend_bf16", "flash_attend_bf16_prefill"], False)]
     total: dict = {}
     for fmt, depth, required, trace in runs:
-        for k, v in _serve_staged(dev, fmt, depth or 36, required, trace).items():
+        cfg = _ptq_cfg(depth, kv_fmt=fmt, flash_prefill=True)
+        launches, _ = _serve_staged(dev, cfg, required, trace=trace)
+        for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     for fmt in ("kv_int8", "kv_mx"):
         _chunk_twin(dev, fmt)
@@ -601,7 +746,26 @@ def _twin_diff(got, want):
     return float((got - want).abs().max()), bool((got.argmax(-1) == want.argmax(-1)).all())
 
 
-def _chunk_twin(dev, kv_fmt: str) -> None:
+def _fp_twin(dev, fcfg, kv_fmt: str, toks) -> bool:
+    """The float32 float-weight twin: flash within 5e-3 of the oracle,
+    equal argmax."""
+    from repro_torch.models import build_model
+
+    fapi = build_model(fcfg, device=dev)
+    fparams = fapi.init(torch.Generator(device=dev).manual_seed(SEED))
+    foracle = build_model(dataclasses.replace(fcfg, flash_decode=False, flash_prefill=False), device=dev)
+    want = _twin_logits(foracle, fparams, toks)
+    diff, same = _twin_diff(_twin_logits(fapi, fparams, toks), want)
+    ok_fp = diff <= 5e-3 and same
+    log(f"twin fp32 {kv_fmt} (2 layers, full width, chunks {TWIN_STARTS} + 4 decode steps): logits "
+        f"max|flash - oracle| = {diff:.3e} (atol 5e-3; logit scale {float(want.abs().max()):.3e}); "
+        f"argmax equal {same} {'OK' if ok_fp else 'FAIL'}")
+    del fparams, fapi, foracle
+    torch.cuda.empty_cache()
+    return ok_fp
+
+
+def _chunk_twin(dev, kv_fmt: str, quant=None, fp_twin=True, dtypes=("bfloat16", "float32")) -> None:
     """2-layer full-width twins over ``kv_fmt``: prefill_chunk at ragged
     starts (0, 77, 300) then 4 decode steps, the kernel path (flash prefill
     and decode) against the plain path (dense attention oracle).
@@ -609,7 +773,8 @@ def _chunk_twin(dev, kv_fmt: str) -> None:
     fp32: float weights and float32 activations, the setting of the
     reference's model-level tolerance (tests/test_flash_prefill.py): logits
     within 5e-3 and equal argmax.
-    ptq: the served model (ternary PTQ; bf16, then float32 activations),
+    ptq: the served model (ternary PTQ unless ``quant`` names other
+    weights; ``dtypes``: bf16, then float32 activations),
     cuda backend and flash against the ref backend and the oracle, split in
     two legs.  The qdense leg (cuda vs ref backend, both with the oracle)
     must be bit-identical in bf16.  The attention leg is not held to 5e-3:
@@ -624,21 +789,10 @@ def _chunk_twin(dev, kv_fmt: str) -> None:
     fcfg = dataclasses.replace(_ptq_cfg(2, kv_fmt=kv_fmt, flash_prefill=True, dtype="float32"),
                                quant=dataclasses.replace(_ptq_cfg().quant, mode="fp"))
     toks = torch.randint(0, fcfg.vocab, (2, TWIN_STARTS[-1] + 4), generator=gen).to(dev)
-    fapi = build_model(fcfg, device=dev)
-    fparams = fapi.init(torch.Generator(device=dev).manual_seed(SEED))
-    foracle = build_model(dataclasses.replace(fcfg, flash_decode=False, flash_prefill=False), device=dev)
-    want = _twin_logits(foracle, fparams, toks)
-    diff, same = _twin_diff(_twin_logits(fapi, fparams, toks), want)
-    ok_fp = diff <= 5e-3 and same
-    log(f"twin fp32 {kv_fmt} (2 layers, full width, chunks {TWIN_STARTS} + 4 decode steps): logits "
-        f"max|flash - oracle| = {diff:.3e} (atol 5e-3; logit scale {float(want.abs().max()):.3e}); "
-        f"argmax equal {same} {'OK' if ok_fp else 'FAIL'}")
-    del fparams, fapi, foracle
-    torch.cuda.empty_cache()
-
+    ok_fp = not fp_twin or _fp_twin(dev, fcfg, kv_fmt, toks)
     ok_ptq = True
-    for dtype in ("bfloat16", "float32"):  # the served activations, then float32 to show the DFP effect
-        cfg = _ptq_cfg(2, kv_fmt=kv_fmt, flash_prefill=True, dtype=dtype)
+    for dtype in dtypes:  # the served activations, then float32 to show the DFP effect
+        cfg = _ptq_cfg(2, quant, kv_fmt=kv_fmt, flash_prefill=True, dtype=dtype)
         qparams, plan, api = _boot(cfg, dev)
         oracle = build_model(dataclasses.replace(cfg, flash_decode=False, flash_prefill=False), device=dev)
         got = _twin_logits(api, qparams, toks)
@@ -653,7 +807,8 @@ def _chunk_twin(dev, kv_fmt: str) -> None:
         # bf16: the backends agree bit for bit; float32: to float32 rounding
         ok = finite and near_best and q_diff <= (0.0 if dtype == "bfloat16" else 1e-5)
         ok_ptq = ok_ptq and ok
-        log(f"twin ptq {kv_fmt} ({dtype}): logits max|kernel - plain| = {diff:.3e} (logit scale "
+        weights = cfg.quant.fmt or {2: "ternary", 4: "int4", 8: "int8"}[cfg.quant.w_bits]
+        log(f"twin ptq {weights} {kv_fmt} ({dtype}): logits max|kernel - plain| = {diff:.3e} (logit scale "
             f"{float(plain.abs().max()):.3e}); qdense leg max|cuda - ref| = {q_diff:.3e}; attention leg "
             f"max|flash - oracle| = {a_diff:.3e}; argmax equal {same}, every pick within the difference of "
             f"the best {near_best}; finite {finite} {'OK' if ok else 'FAIL'}")
@@ -664,7 +819,53 @@ def _chunk_twin(dev, kv_fmt: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 6. timings
+# 6. weight formats: int4, nf4, mx, and the unfused path
+# ---------------------------------------------------------------------------
+FORMAT_QUANTS = {"ternary": dict(w_bits=2), "int4": dict(w_bits=4), "nf4": dict(fmt="nf4"), "mx": dict(fmt="mx")}
+
+
+def phase_formats(dev) -> dict:
+    """The paper's 4-bit weights on the staged path over kv_int8: int4 at
+    all 36 layers (traced), nf4 and mx at 4 layers; then, at 4 layers, every
+    site fused=False for ternary, int4 and nf4, whose tokens must equal
+    the fused run's on the same weights; then the 2-layer int4 PTQ twin."""
+    flash = ["flash_attend_int8", "flash_attend_int8_prefill"]
+    runs = [("int4", None, ["fused_qmm_int4", "fused_qmm_int4_prefill", "fused_qmm_int8"] + flash, True),
+            ("nf4", SMALL_DEPTH, ["fused_qmm_nf4", "fused_qmm_nf4_prefill", "fused_qmm_int8"] + flash, False),
+            ("mx", SMALL_DEPTH, ["fused_qmm_int8"] + flash, False)]
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for fmt, depth, required, trace in runs:
+        cfg = _ptq_cfg(depth, FORMAT_QUANTS[fmt], kv_fmt="kv_int8", flash_prefill=True)
+        add(_serve_staged(dev, cfg, required, trace=trace, label=f"staged {fmt} kv_int8 {cfg.n_layers}L")[0])
+    for fmt in ("int4", "ternary", "nf4"):
+        cfg = _ptq_cfg(SMALL_DEPTH, FORMAT_QUANTS[fmt], kv_fmt="kv_int8", flash_prefill=True)
+        booted = _boot(cfg, dev)
+        label = f"staged {fmt} kv_int8 {SMALL_DEPTH}L"
+        launches, fused_out = _serve_staged(dev, cfg, [f"fused_qmm_{fmt}"], booted=booted, label=f"{label} fused")
+        add(launches)
+        packed = [f"packed_qmm_{fmt}"] + (["packed_qmm_int4_prefill"] if fmt == "int4" else [])
+        launches, unfused_out = _serve_staged(
+            dev, cfg, ["quantize_rows", "quantize_rows_prefill", "packed_qmm_int8"] + packed, booted=booted,
+            unfused=True, label=f"{label} fused=False")
+        add(launches)
+        same = unfused_out == fused_out
+        log(f"{label}: fused=False tokens {'equal' if same else 'DIFFER from'} the fused run's "
+            f"({sum(map(len, unfused_out.values()))} tokens) {'OK' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit(f"{label}: the unfused path's tokens differ from the fused path's")
+        del booted
+        torch.cuda.empty_cache()
+    _chunk_twin(dev, "kv_int8", FORMAT_QUANTS["int4"], fp_twin=False, dtypes=("bfloat16",))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 7. timings
 # ---------------------------------------------------------------------------
 class _Timer:
     """CUDA-event time of one call, device memory flushed before each run
@@ -692,47 +893,98 @@ class _Timer:
         return total / iters
 
 
-def phase_timings(dev) -> dict:
-    from repro_torch.kernels.flash_prefill import flash_attend, flash_attend_ref
+# JSON row -> (format, kernel "fused" | "packed", M, sites): the per-site
+# times add up to one layer's 7 projections, or lm_head for int8
+LM_HEAD = QDENSE_SITES[-1:]
+QDENSE_TIMED = {
+    "fused_qmm_ternary": ("ternary", "fused", M_ROWS, LAYER_SITES),
+    "fused_qmm_ternary_prefill": ("ternary", "fused", PREFILL_ROWS[-1], LAYER_SITES),
+    "fused_qmm_int8": ("int8", "fused", M_ROWS, LM_HEAD),
+    "fused_qmm_int4": ("int4", "fused", M_ROWS, LAYER_SITES),
+    "fused_qmm_int4_prefill": ("int4", "fused", PREFILL_ROWS[-1], LAYER_SITES),
+    "fused_qmm_nf4": ("nf4", "fused", M_ROWS, LAYER_SITES),
+    "fused_qmm_nf4_prefill": ("nf4", "fused", PREFILL_ROWS[-1], LAYER_SITES),
+    "packed_qmm_ternary": ("ternary", "packed", M_ROWS, LAYER_SITES),
+    "packed_qmm_int4": ("int4", "packed", M_ROWS, LAYER_SITES),
+    "packed_qmm_int4_prefill": ("int4", "packed", PREFILL_ROWS[-1], LAYER_SITES),
+    "packed_qmm_nf4": ("nf4", "packed", M_ROWS, LAYER_SITES),
+    "packed_qmm_int8": ("int8", "packed", M_ROWS, LM_HEAD),
+}
+QUANTIZE_TIMED = {"quantize_rows": (M_ROWS, 4096), "quantize_rows_prefill": (PREFILL_ROWS[-1], 12288)}
+
+
+def _bound(nbytes: float, ops: float, peak_ops: float) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                t_bytes=t_bytes, t_ops=t_ops)
+
+
+def _time_site(timer, qt, w_bf16, fmt, kernel, m, act, gen, dev) -> dict:
+    """One site's kernel, plain version and torch.matmul on the bf16
+    dequantized weights; the bound from the bytes the call moves (x or its
+    int8 mantissas, packed weights and scales, f32 out) and its int8
+    operations."""
     from repro_torch.kernels.fused_qmm import fused_qmm_ref
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.quant.formats import get_format
+
+    k, n = qt.shape
+    x = (torch.randn((m, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    if kernel == "packed":
+        xq, _ = quantize_rows(x)
+        entry, x_bytes = get_format(fmt).kernel, xq.numel()
+        fn = lambda: entry(xq, qt.packed, qt.scale_m, group=qt.group_size)  # noqa: E731
+        plain = lambda: packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=_decode_of(fmt),  # noqa: E731
+                                       group=qt.group_size)
+    else:
+        entry, x_bytes, kw = _entry(fmt), x.numel() * x.element_size(), dict(group=qt.group_size, act=act)
+        fn = lambda: entry(x, qt.packed, qt.scale_m, qt.scale_e, **kw)  # noqa: E731
+        plain = lambda: fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=fmt, **kw)  # noqa: E731
+    nbytes = x_bytes + qt.nbytes() + m * n * 4
+    row = dict(ms=timer(fn), plain_ms=timer(plain, iters=3, warmup=1), library_ms=timer(lambda: torch.matmul(x, w_bf16)),
+               **_bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S))
+    return row
+
+
+def phase_timings(dev) -> dict:
+    from repro_torch.kernels.quantize import quantize_rows, quantize_rows_plain
     from repro_torch.quant.formats import dequantize_weights
 
     timer = _Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    rows = {}
-    prefill_sites = []
-    for name, k, n, decode, act in QDENSE_SITES:
-        qt = _qsite(k, n, decode, gen, dev)
-        w_bf16 = dequantize_weights(qt).to(torch.bfloat16)
-        for m in (M_ROWS,) + ((PREFILL_ROWS[-1],) if decode == "ternary" else ()):
-            x = (torch.randn((m, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
-            kw = dict(group=GROUP, act=act)
-            entry = _entry(decode)
-            ms = timer(lambda: entry(x, qt.packed, qt.scale_m, qt.scale_e, **kw))
-            plain_ms = timer(lambda: fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw),
-                             iters=3, warmup=1)
-            lib_ms = timer(lambda: torch.matmul(x, w_bf16))
-            nbytes = (x.numel() * x.element_size() + qt.nbytes() + m * n * 4)
-            ops = 2 * m * k * n  # int8 multiply-adds on the integer pipeline
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
-            row = dict(decode=decode, m=m, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
-                       t_bytes=t_bytes, t_ops=t_ops)
-            if m == M_ROWS:
-                rows[name] = row
-            else:
-                prefill_sites.append(row)
-            log(f"time qdense {name:7s} K={k:5d} N={n:6d} {decode:7s} M={m:3d}: kernel {ms:.4f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GOP; by {row['bound_by']}), "
-                f"plain {plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms; {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
-        del qt, w_bf16
-    rows["ternary_prefill"] = {key: sum(r[key] for r in prefill_sites)
-                               for key in ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")}
-    rows["ternary_prefill"]["bound_by"] = ("bytes" if rows["ternary_prefill"]["t_bytes"]
-                                           >= rows["ternary_prefill"]["t_ops"] else "operations")
-    log(f"time qdense one layer's 7 ternary sites at M={PREFILL_ROWS[-1]}: kernel {rows['ternary_prefill']['ms']:.4f} ms, "
-        f"bound {rows['ternary_prefill']['bound_ms']:.4f} ms, torch.matmul bf16 {rows['ternary_prefill']['library_ms']:.4f} ms "
-        f"(every row block re-streams the weights: {-(-PREFILL_ROWS[-1] // 8)} row blocks)")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
+    rows = {name: dict.fromkeys(keys, 0.0) for name in QDENSE_TIMED}
+    for fmt in ("ternary", "int8", "int4", "nf4"):
+        for name, k, n, _, act in QDENSE_SITES:
+            timed = [(row, kernel, m) for row, (f, kernel, m, sites) in QDENSE_TIMED.items()
+                     if f == fmt and any(site[0] == name for site in sites)]
+            if not timed:
+                continue
+            qt = _qsite(k, n, fmt, gen, dev)
+            w_bf16 = dequantize_weights(qt).to(torch.bfloat16)
+            for row, kernel, m in timed:
+                r = _time_site(timer, qt, w_bf16, fmt, kernel, m, act, gen, dev)
+                for key in keys:
+                    rows[row][key] += r[key]
+                log(f"time {kernel} qdense {name:7s} K={k:5d} N={n:6d} {fmt:7s} M={m:3d}: kernel {r['ms']:.4f} ms, "
+                    f"bound {r['bound_ms']:.4f} ms (by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+                    f"torch.matmul bf16 {r['library_ms']:.4f} ms")
+            del qt, w_bf16
+    for name, row in rows.items():
+        row["bound_by"] = "bytes" if row["t_bytes"] >= row["t_ops"] else "operations"
+        fmt, kernel, m, sites = QDENSE_TIMED[name]
+        log(f"time {name} ({len(sites)} site{'s' * (len(sites) > 1)} at M={m}): kernel {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms (by {row['bound_by']}), plain {row['plain_ms']:.4f} ms, torch.matmul bf16 "
+            f"{row['library_ms']:.4f} ms")
+    for name, (m, d) in QUANTIZE_TIMED.items():
+        x = (torch.randn((m, d), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        nbytes = x.numel() * 2 + m * d + m * 4  # x in, int8 mantissas and int32 exponents out
+        rows[name] = dict(ms=timer(lambda: quantize_rows(x)), plain_ms=timer(lambda: quantize_rows_plain(x), iters=3,
+                                                                             warmup=1),
+                          library_ms=None, **_bound(nbytes, 0, INT8_OPS_PER_S))
+        log(f"time quantize_rows ({m}, {d}) bf16: kernel {rows[name]['ms']:.4f} ms, bound {rows[name]['bound_ms']:.5f} ms "
+            f"({nbytes / 1e6:.2f} MB; by bytes), plain {rows[name]['plain_ms']:.4f} ms, library -- (no single call)")
 
     # flash kv_bf16 at the lockstep decode shape (4 slots x 256 positions)
     fs = FLASH_SHAPE
@@ -790,22 +1042,26 @@ def _time_flash(timer, fmt, shape, case, what) -> dict:
     return row
 
 
+KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it replaces)
+    "fused_qmm_ternary": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/ternary_matmul.py:63"),
+    "fused_qmm_int8": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/int8_matmul.py:53"),
+    "fused_qmm_int4": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/int4_matmul.py:53"),
+    "fused_qmm_nf4": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/nf4_matmul.py:56"),
+    "packed_qmm_ternary": ("src/repro_torch/csrc/packed_qmm.cu", "src/repro/kernels/ternary_matmul.py:37"),
+    "packed_qmm_int4": ("src/repro_torch/csrc/packed_qmm.cu", "src/repro/kernels/int4_matmul.py:27"),
+    "packed_qmm_int8": ("src/repro_torch/csrc/packed_qmm.cu", "src/repro/kernels/int8_matmul.py:27"),
+    "packed_qmm_nf4": ("src/repro_torch/csrc/packed_qmm.cu", "src/repro/kernels/nf4_matmul.py:30"),
+    "quantize_rows": ("src/repro_torch/csrc/quantize_rows.cu", "src/repro/kernels/quantize.py:45"),
+    "flash_attend": ("src/repro_torch/csrc/flash_attend.cu", "src/repro/kernels/flash_prefill.py:158"),
+}
+
+
 def _kernel_line(errs, launches, rows) -> dict:
-    layer = [r for r in rows.values() if r.get("decode") == "ternary"]
-    sums = lambda key: sum(r[key] for r in layer)  # noqa: E731
-    replaces = {"ternary": "src/repro/kernels/ternary_matmul.py:63", "int8": "src/repro/kernels/int8_matmul.py:53",
-                "flash": "src/repro/kernels/flash_prefill.py:158"}
-    source = {"ternary": "src/repro_torch/csrc/fused_qmm.cu", "int8": "src/repro_torch/csrc/fused_qmm.cu",
-              "flash": "src/repro_torch/csrc/flash_attend.cu"}
-    timed = dict(rows)
-    timed["fused_qmm_ternary"] = dict(ms=sums("ms"), plain_ms=sums("plain_ms"), bound_ms=sums("bound_ms"),
-                                      bound_by="bytes", library_ms=sums("library_ms"))
-    timed["fused_qmm_ternary_prefill"] = rows["ternary_prefill"]
-    timed["fused_qmm_int8"] = rows["lm_head"]
     out = []
-    for name, (entry, _) in MODES.items():
-        r = timed[name]
-        out.append({"name": name, "route": "cuda", "source": source[entry], "replaces": replaces[entry],
+    for name in MODES:
+        source, replaces = next(v for prefix, v in KERNEL_SOURCES.items() if name.startswith(prefix))
+        r = rows[name]
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[name], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     return {"kernels": out}
@@ -820,13 +1076,15 @@ def main() -> None:
     launches = phase_main(dev)
     for k, v in phase_staged(dev).items():
         launches[k] += v
+    for k, v in phase_formats(dev).items():
+        launches[k] += v
     rows = phase_timings(dev)
     line = _kernel_line(errs, launches, rows)
     if not all(math.isfinite(v) for k in line["kernels"] for v in k.values() if isinstance(v, float)):
         raise SystemExit("a measured number is not finite")
-    log(f"total {time.perf_counter() - t_start:.1f} s; ternary ms/plain/library/bound are sums over one layer's "
-        f"7 sites (at M={M_ROWS}, and at M={PREFILL_ROWS[-1]} for fused_qmm_ternary_prefill); launches are "
-        f"summed over the lockstep and the three staged runs")
+    log(f"total {time.perf_counter() - t_start:.1f} s; qdense ms/plain/library/bound of 2- and 4-bit rows are sums "
+        f"over one layer's 7 sites (at M={M_ROWS}, and at M={PREFILL_ROWS[-1]} for *_prefill rows), int8 rows are "
+        f"lm_head at M={M_ROWS}; launches are summed over the lockstep, staged and format runs")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

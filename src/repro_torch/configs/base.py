@@ -14,14 +14,14 @@ from typing import Optional
 class QuantConfig:
     """Paper knobs: weight bits, cluster size (group along reduction dim)."""
 
-    w_bits: int = 2  # 2 = ternary (Algorithm 1), 8, 32 = off
+    w_bits: int = 2  # 2 = ternary (Algorithm 1), 4, 8, 32 = off
     act_bits: int = 8
     group_size: int = 64  # paper's N*K^2 reduction segment per alpha
     filter_size: int = 1  # Algorithm-2 unit within a cluster
     refit_scale: bool = False  # beyond-paper L2 refit of alpha
     mode: str = "fp"  # 'fp' | 'ptq'
     backend: str = "auto"  # qdense backend for ptq: auto | cuda | ref
-    fmt: Optional[str] = None  # registered weight-format name
+    fmt: Optional[str] = None  # registered weight-format name (nf4, mx, ...); None keeps the w_bits ladder
 
 
 @dataclasses.dataclass(frozen=True)

@@ -65,8 +65,29 @@ class PrecisionPolicy:
         )
 
     @classmethod
+    def int4(cls, group_size: int = 64) -> "PrecisionPolicy":
+        return cls(
+            default=LayerPrecision(4, 8, group_size),
+            overrides=cls.paper_overrides(group_size),
+        )
+
+    @classmethod
     def int8(cls, group_size: int = 64) -> "PrecisionPolicy":
         return cls(
             default=LayerPrecision(8, 8, group_size),
+            overrides=cls.paper_overrides(group_size),
+        )
+
+    @classmethod
+    def for_format(cls, fmt: str, group_size: int = 64, filter_size: int = 1,
+                   refit_scale: bool = False) -> "PrecisionPolicy":
+        """Default sites on the named registered format, at its own width;
+        a format with a fixed block (mx: 32) pins ``group_size`` to it.  The
+        paper's 8-bit override sites stay on the built-in int8 format."""
+        from repro_torch.quant.formats import get_format  # lazy: formats imports the kernels
+
+        f = get_format(fmt)
+        return cls(
+            default=LayerPrecision(f.bits, 8, f.block_size or group_size, filter_size, refit_scale, fmt=fmt),
             overrides=cls.paper_overrides(group_size),
         )

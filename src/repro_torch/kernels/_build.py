@@ -3,9 +3,12 @@
 Each ``<name>.cu`` compiles with nvcc into ``build/kernels/lib<name>-<hash>.so``
 at the repository root (a directory ``.gitignore`` lists) and loads through
 ctypes: a plain C interface, no PyTorch headers, so a build takes seconds.
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  ``build_all`` starts one
-nvcc per source at once and waits for all of them.
+The file name carries a hash of the source, the shared headers and the
+flags, so an edited source rebuilds and an unchanged one is reused.
+``build_all`` starts one nvcc per source at once and waits for all of them.
+
+Every kernel entry counts its launches (``counted``, ``count_launch``), so a
+run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -15,12 +18,13 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_qmm", "flash_attend")
+SOURCES = ("fused_qmm", "packed_qmm", "quantize_rows", "flash_attend")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -38,7 +42,7 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -90,3 +94,19 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def counted(entry):
+    """Give a kernel entry its launch counts: ``launches`` and
+    ``mode_launches`` by rows, "m<=8" (one row block) | "m>8"."""
+    entry.launches = 0
+    entry.mode_launches = Counter()
+    return entry
+
+
+def count_launch(entry, x) -> None:
+    """One launch on ``entry`` if ``x`` lies on the card (the wrapper then
+    launched the kernel or raised; a CPU tensor ran the plain version)."""
+    if x.is_cuda:
+        entry.launches += 1
+        entry.mode_launches["m<=8" if x.shape[0] <= 8 else "m>8"] += 1

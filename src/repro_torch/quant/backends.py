@@ -3,10 +3,13 @@
   * ``ref``  : the plain oracle -- activation quantization, exact integer
                cluster dots (``kernels/ref.qmatmul_ref``), then exponents,
                bias and activation as separate steps.
-  * ``cuda`` : the fused strategy, the counterpart of ``pallas``: the whole
-               site is one call of ``kernels/fused_qmm.fused_qmm``, which
-               launches the CUDA kernel for a CUDA tensor and runs its
-               plain version for a CPU tensor.
+  * ``cuda`` : the counterpart of ``pallas``.  Fused (a site's plan says
+               ``fused=True``): the whole site is one call of its format's
+               ``fused_kernel``.  Unfused: ``quantize_rows``, the format's
+               packed ``kernel``, then ``out * 2**(scale_e + x_e)``, bias,
+               activation.  Each kernel wrapper launches its CUDA kernel
+               for a CUDA tensor and runs its plain version for a CPU one.
+               The kernels take any M: no ``m_bucket`` padding.
   * ``auto`` : ``cuda`` for a CUDA tensor, ``ref`` for a CPU tensor.
 """
 from __future__ import annotations
@@ -18,12 +21,10 @@ import torch
 from repro_torch.core import dfp
 from repro_torch.core.quantizer import QTensor
 from repro_torch.kernels.fused_qmm import activation_fn
-from repro_torch.kernels.int8_matmul import int8_matmul_fused
+from repro_torch.kernels.quantize import quantize_rows
 from repro_torch.kernels.ref import qmatmul_ref, quantize_rows_ref
-from repro_torch.kernels.ternary_matmul import ternary_matmul_fused
 
 BACKENDS = ("ref", "cuda")
-_FUSED_ENTRIES = {"ternary": ternary_matmul_fused, "int8": int8_matmul_fused}
 
 
 def resolve_backend(name: str, x: torch.Tensor) -> str:
@@ -34,21 +35,41 @@ def resolve_backend(name: str, x: torch.Tensor) -> str:
     return name
 
 
-def quantize_activations(x: torch.Tensor, bits: int = 8, *, exponent=None
+def quantize_activations(x: torch.Tensor, bits: int = 8, *, exponent=None, backend: str = "auto"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """DFP-quantize activations -> (int8 mantissas, int32 exponent(s)):
-    against a static exponent, or per-row dynamic exponents."""
+    """DFP-quantize activations (M, K) -> (int8 mantissas, int32 exponent(s)):
+    against a static exponent, or per-row dynamic exponents through the
+    ``quantize_rows`` kernel (``cuda``) or the oracle (``ref``)."""
     if exponent is not None:
         e = torch.tensor(int(exponent), dtype=torch.int32, device=x.device)
         return dfp.quantize(x, e, bits), e
+    if resolve_backend(backend, x) == "cuda":
+        return quantize_rows(x, bits)
     return quantize_rows_ref(x, bits)
 
 
-def qmatmul(x: torch.Tensor, qt: QTensor, *, act_bits: int = 8, act_exponent=None) -> torch.Tensor:
-    """x [..., K] (float) x QTensor (K, N) -> [..., N] f32 through the oracle."""
+def _cuda_backend(xq: torch.Tensor, xe, qt: QTensor, block_k: int) -> torch.Tensor:
+    from repro_torch.quant.formats import format_of
+
+    out = format_of(qt).kernel(xq, qt.packed, qt.scale_m, group=qt.group_size, block_k=block_k)
+    return out * dfp.exp2i(qt.scale_e + xe)
+
+
+def _unfused(xm: torch.Tensor, qt: QTensor, name: str, act_bits: int, act_exponent, block_k: int):
+    """Quantize, then the backend's matmul with exponents applied."""
+    xq, xe = quantize_activations(xm, act_bits, exponent=act_exponent, backend=name)
+    return _cuda_backend(xq, xe, qt, block_k) if name == "cuda" else qmatmul_ref(xq, xe, qt)
+
+
+def qmatmul(x: torch.Tensor, qt: QTensor, *, backend: str = "auto", act_bits: int = 8,
+            act_exponent=None, block_k: int = 512) -> torch.Tensor:
+    """x [..., K] (float) x QTensor (K, N) -> [..., N] f32: 8-bit DFP
+    activations (per-row dynamic exponents, or the static ``act_exponent``),
+    int32 cluster sums, one scale multiply per cluster."""
     lead = x.shape[:-1]
-    xq, xe = quantize_activations(x.reshape(-1, x.shape[-1]), act_bits, exponent=act_exponent)
-    return qmatmul_ref(xq, xe, qt).reshape(*lead, qt.n)
+    xm = x.reshape(-1, x.shape[-1]).contiguous()
+    out = _unfused(xm, qt, resolve_backend(backend, x), act_bits, act_exponent, block_k)
+    return out.reshape(*lead, qt.n)
 
 
 def apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -65,20 +86,16 @@ def qdense(
     from repro_torch.quant.formats import format_of
 
     lead = x.shape[:-1]
-    xm = x.reshape(-1, x.shape[-1])
+    xm = x.reshape(-1, x.shape[-1]).contiguous()
     name = resolve_backend(backend, x)
-    decode = format_of(qt).kernel_decode
-    if name == "cuda" and fused and decode in _FUSED_ENTRIES:
-        out = _FUSED_ENTRIES[decode](
-            xm.contiguous(), qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size,
+    if name == "cuda" and fused:
+        out = format_of(qt).fused_kernel(
+            xm, qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size,
             bias=bias, act=act, act_bits=act_bits, act_exponent=act_exponent,
             block_k=block_k,
         )
-    elif name == "cuda":
-        raise ValueError(f"the cuda backend has no unfused path (format {qt.fmt!r}, fused={fused})")
     else:
-        xq, xe = quantize_activations(xm, act_bits, exponent=act_exponent)
-        out = qmatmul_ref(xq, xe, qt)
+        out = _unfused(xm, qt, name, act_bits, act_exponent, block_k)
         if bias is not None:
             out = out + bias.to(torch.float32)
         out = apply_act(out, act)

@@ -101,16 +101,18 @@ class QuantCtx:
 
     @classmethod
     def from_config(cls, q) -> "QuantCtx":
+        """The pre-compile ctx of a ``configs.base.QuantConfig``: a named
+        format, else the ``w_bits`` ladder (2 ternary, 4 int4, else int8)."""
         if q.mode == "fp":
             return cls.fp()
-        if q.fmt not in (None, "ternary", "int8"):
-            raise NotImplementedError(f"format {q.fmt!r} is not ported yet")
-        if q.w_bits == 2:
+        if q.fmt:
+            pol = PrecisionPolicy.for_format(q.fmt, q.group_size, q.filter_size, q.refit_scale)
+        elif q.w_bits == 2:
             pol = PrecisionPolicy.ternary(q.group_size, q.filter_size, q.refit_scale)
-        elif q.w_bits == 8:
-            pol = PrecisionPolicy.int8(q.group_size)
+        elif q.w_bits == 4:
+            pol = PrecisionPolicy.int4(q.group_size)
         else:
-            raise NotImplementedError(f"w_bits={q.w_bits} is not ported yet")
+            pol = PrecisionPolicy.int8(q.group_size)
         return cls(q.mode, pol, q.backend)
 
     @classmethod

@@ -128,3 +128,151 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ternary_matmul_fused(torch.randn((2, 64), device=dev), qt.packed, qt.scale_m, qt.scale_e, group=8)
     with pytest.raises(TypeError):
         ternary_matmul_fused(torch.randn((2, 64), device=dev).half(), qt.packed, qt.scale_m, qt.scale_e, group=16)
+
+
+# ---------------------------------------------------------------------------
+# 4-bit fused decodes, the unfused pair (quantize_rows, packed_qmm), qmatmul
+# ---------------------------------------------------------------------------
+FMT_BITS = {"ternary": 2, "int4": 4, "int8": 8, "nf4": 4, "mx": 8}
+ROWS = [1, 4, 9, 17, 256]
+
+
+def _edge_x(m, k, gen, dev, dtype):
+    """Random rows, then (where there is room) a NaN, a max of exactly
+    127 * 2**-3, one ulp above it, an all-zero row and a subnormal max."""
+    x = torch.randn((m, k), generator=gen, device=dev) * 0.1
+    edits = [(7, float("nan")), (11, 127.0 * 2.0**-3), (13, 127.0 * 2.0**-3 * (1 + 2.0**-7))]
+    for r, (c, v) in enumerate(edits[:m]):
+        x[r, c] = v
+    if m > 4:
+        x[3] = 0.0
+        x[4] = 0.0
+        x[4, 5] = 1e-39
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("decode", ["int4", "nf4"])
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("static_e", [None, -3])
+def test_fused_qmm_4bit_bit_exact(dev, decode, m, static_e):
+    from repro_torch.kernels.int4_matmul import int4_matmul_fused
+    from repro_torch.kernels.nf4_matmul import nf4_matmul_fused
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    k, n, group = 1024, 256, 64
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev), 4, group, fmt=decode)
+    x = _edge_x(m, k, gen, dev, torch.bfloat16)
+    bias = torch.randn((n,), generator=gen, device=dev)
+    entry = int4_matmul_fused if decode == "int4" else nf4_matmul_fused
+    kw = dict(group=group, bias=bias, act="silu", act_exponent=static_e, block_k=256)
+    before = entry.launches
+    got = entry(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
+    want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw)
+    torch.cuda.synchronize()
+    assert entry.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("fmt", list(FMT_BITS))
+@pytest.mark.parametrize("m", ROWS)
+def test_packed_qmm_bit_exact(dev, fmt, m):
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.quant.formats import get_format
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    k, n = 1024, 256
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev), FMT_BITS[fmt], 64, fmt=fmt)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    entry = get_format(fmt).kernel
+    got = entry(xq, qt.packed, qt.scale_m, group=qt.group_size, block_k=256)
+    decode = "int8" if fmt == "mx" else fmt
+    want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size, block_k=256)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", ROWS)
+def test_quantize_rows_bit_exact(dev, dtype, m):
+    from repro_torch.kernels.quantize import quantize_rows, quantize_rows_plain
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    x = _edge_x(m, 4096, gen, dev, dtype)
+    before = quantize_rows.launches
+    q, e = quantize_rows(x)
+    wq, we = quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 1
+    assert torch.equal(q, wq) and torch.equal(e, we)
+
+
+@pytest.mark.parametrize("fmt", list(FMT_BITS))
+@pytest.mark.parametrize("m", [4, 256])
+@pytest.mark.parametrize("static_e", [None, -4])
+def test_unfused_site_equals_fused(dev, fmt, m, static_e):
+    """quantize_rows -> packed_qmm -> 2**(scale_e + e) -> bias -> silu is
+    the fused kernel's site, bit for bit."""
+    from repro_torch.quant import qdense
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    k, n = 2048, 512
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * 0.02, FMT_BITS[fmt], 64, fmt=fmt)
+    x = _edge_x(m, k, gen, dev, torch.bfloat16)
+    bias = torch.randn((n,), generator=gen, device=dev)
+    kw = dict(bias=bias, act="silu", backend="cuda", act_exponent=static_e)
+    fused = qdense(x, qt, fused=True, **kw)
+    unfused = qdense(x, qt, fused=False, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fused.view(torch.int32), unfused.view(torch.int32))
+
+
+def test_qmatmul_on_cuda_launches_the_kernels(dev):
+    """The public qmatmul on a CUDA tensor goes through quantize_rows and the
+    packed kernel (it used to run the plain oracle on the card)."""
+    from repro_torch.kernels.int4_matmul import int4_matmul
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.quant import qdense, qmatmul
+
+    qt = quantize_weights(torch.randn((512, 128), device=dev), 4, 64)
+    x = torch.randn((3, 5, 512), device=dev)
+    before = (quantize_rows.launches, int4_matmul.launches)
+    got = qmatmul(x, qt)
+    want = qdense(x, qt, backend="cuda")  # the fused site, no bias or activation
+    torch.cuda.synchronize()
+    assert (quantize_rows.launches, int4_matmul.launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (3, 5, 128) and torch.equal(got, want)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_fused
+    from repro_torch.kernels.quantize import quantize_rows
+
+    qt = quantize_weights(torch.randn((64, 32), device=dev), 4, 16)
+    with pytest.raises(ValueError):  # group 4 splits an 8-field word
+        int4_matmul_fused(torch.randn((2, 64), device=dev), qt.packed, qt.scale_m, qt.scale_e, group=4)
+    with pytest.raises(TypeError):
+        int4_matmul(torch.zeros((2, 64), device=dev), qt.packed, qt.scale_m, group=16)  # float, not int8
+    with pytest.raises(ValueError):  # ternary-shaped words for an int4 site
+        int4_matmul(torch.zeros((2, 64), dtype=torch.int8, device=dev), qt.packed[:4], qt.scale_m, group=16)
+    with pytest.raises(TypeError):
+        quantize_rows(torch.randn((2, 64), device=dev).half())
+    with pytest.raises(ValueError):
+        quantize_rows(torch.randn((2, 12), device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("m", [4, 17])
+def test_mx_long_rows_take_fewer_rows_per_block(dev, m):
+    """mx at d_ff = 12288: 32-element clusters leave room for 7 rows a block."""
+    from repro_torch.kernels.fused_qmm import rows_per_block
+    from repro_torch.quant import qdense
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    qt = quantize_weights(torch.randn((12288, 256), generator=gen, device=dev) * 0.01, 8, 32, fmt="mx")
+    assert rows_per_block(m, 12288, "int8", 32) == (8 if m <= 8 else 7)
+    x = _edge_x(m, 12288, gen, dev, torch.bfloat16)
+    fused = qdense(x, qt, backend="cuda")
+    unfused = qdense(x, qt, backend="cuda", fused=False)
+    want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode="int8", group=32)
+    torch.cuda.synchronize()
+    assert torch.equal(fused.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(unfused.view(torch.int32), want.view(torch.int32))

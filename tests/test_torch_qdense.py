@@ -1,8 +1,11 @@
-"""Port vs reference: the whole quantized dense site.
+"""Port vs reference: the whole quantized dense site, for every ported
+weight format (ternary, int4, int8, nf4, mx).
 
 The port's ``qdense`` on CPU tensors -- the fused kernel's plain version
-(backend ``cuda``/``auto`` route) and the ``ref`` oracle -- against the
-reference's ``qdense`` with ``backend="pallas"`` (interpret mode) and
+(backend ``cuda``), the unfused composition of the ``quantize_rows`` and
+packed-matmul plain versions (``cuda`` with ``fused=False``) and the
+``ref`` oracle -- against the reference's ``qdense`` with
+``backend="pallas"`` (interpret mode, fused and unfused) and
 ``backend="ref"``: bit for bit (``np.array_equal``) on the cases of
 ``tests/test_qdense.py``.  With ``act="silu"`` the pre-activation output is
 bit-exact and the activated output agrees to 2 ulp: the reference's
@@ -18,11 +21,13 @@ from repro.quant import qdense as jqdense
 from repro.quant import qmatmul as jqmatmul
 from repro.quant import quantize_weights as jquantize
 from repro_torch.core.quantizer import QTensor
-from repro_torch.kernels.ternary_matmul import ternary_matmul_fused
+from repro_torch.kernels.quantize import quantize_rows
+from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_fused
 from repro_torch.quant import qdense as tqdense
 from repro_torch.quant import qmatmul as tqmatmul
 
-FMT_BITS = {"ternary": 2, "int8": 8}
+FMT_BITS = {"ternary": 2, "int4": 4, "int8": 8, "nf4": 4, "mx": 8}
+FMTS = list(FMT_BITS)
 
 
 def _site(m, k, n, g, fmt, seed, bias, dtype=np.float32):
@@ -32,7 +37,7 @@ def _site(m, k, n, g, fmt, seed, bias, dtype=np.float32):
     b = rng.normal(size=(n,)).astype(np.float32) if bias else None
     jq = jquantize(jnp.asarray(w), FMT_BITS[fmt], g, fmt=fmt)
     tq = QTensor(
-        torch.from_numpy(np.asarray(jq.packed).view(np.int32) if fmt == "ternary" else np.asarray(jq.packed)),
+        torch.from_numpy(np.asarray(jq.packed).view(np.int32) if jq.packed.dtype == jnp.uint32 else np.asarray(jq.packed)),
         torch.from_numpy(np.asarray(jq.scale_m)), torch.tensor(int(jq.scale_e), dtype=torch.int32),
         jq.bits, jq.group_size, tuple(jq.shape), jq.fmt,
     )
@@ -69,7 +74,7 @@ def _check(jx, tx, jq, tq, b, act, static_e, block_k):
             np.testing.assert_array_max_ulp(got, want_ref, maxulp=2)
 
 
-@pytest.mark.parametrize("fmt", ["ternary", "int8"])
+@pytest.mark.parametrize("fmt", FMTS)
 @pytest.mark.parametrize("static_e", [None, -4])
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("act", [None, "silu"])
@@ -79,7 +84,7 @@ def test_qdense_bit_exact_vs_reference(fmt, static_e, bias, act):
     _check(jx, tx, jq, tq, b, act, static_e, block_k=32)
 
 
-@pytest.mark.parametrize("fmt", ["ternary", "int8"])
+@pytest.mark.parametrize("fmt", FMTS)
 def test_qdense_bf16_and_leading_dims(fmt):
     jx, tx, jq, tq, _ = _site(12, 64, 16, 16, fmt, 9, False, dtype="bf16")
     want = np.asarray(jqdense(jx.reshape(3, 4, 64), jq, backend="pallas"))
@@ -88,11 +93,27 @@ def test_qdense_bf16_and_leading_dims(fmt):
     assert np.array_equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("fmt", ["ternary", "int8"])
+@pytest.mark.parametrize("fmt", FMTS)
 def test_qdense_group64_many_tiles(fmt):
     """group 64 (the served size) over K = 1024: 2 k-tiles of 512."""
     jx, tx, jq, tq, b = _site(4, 1024, 48, 64, fmt, 11, True)
     _check(jx, tx, jq, tq, b, None, None, block_k=512)
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("static_e", [None, -4])
+def test_qdense_unfused_bit_exact_vs_reference(fmt, static_e):
+    """fused=False: quantize, the packed matmul, exponents, then bias, in the
+    reference's order (m=7 ragged, block_k=32: several k-tiles); equal to
+    the fused site too."""
+    jx, tx, jq, tq, b = _site(7, 64, 32, 16, fmt, FMT_BITS[fmt] + 1, True)
+    kw = dict(act_exponent=static_e, block_k=32)
+    want = np.asarray(jqdense(jx, jq, bias=jnp.asarray(b), backend="pallas", fused=False, **kw))
+    oracle = np.asarray(jqdense(jx, jq, bias=jnp.asarray(b), backend="ref", fused=False, **kw))
+    assert np.array_equal(_bits(want), _bits(oracle))
+    for backend, fused in (("cuda", False), ("ref", False), ("cuda", True)):
+        got = tqdense(tx, tq, bias=torch.from_numpy(b), backend=backend, fused=fused, **kw).numpy()
+        assert np.array_equal(_bits(got), _bits(want)), (backend, fused)
 
 
 def test_qdense_edge_rows_bit_exact():
@@ -124,17 +145,20 @@ def test_qdense_other_epilogue_activations(act):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("fmt", ["ternary", "int8"])
+@pytest.mark.parametrize("fmt", FMTS)
 @pytest.mark.parametrize("static_e", [None, -4])
 def test_qmatmul_bit_exact_vs_reference(fmt, static_e):
     jx, tx, jq, tq, _ = _site(5, 64, 24, 16, fmt, 7, False)
     want = np.asarray(jqmatmul(jx, jq, backend="ref", act_exponent=static_e))
-    got = tqmatmul(tx, tq, act_exponent=static_e).numpy()
-    assert np.array_equal(_bits(got), _bits(want))
+    for backend in ("auto", "cuda"):  # the oracle, and the kernels' plain versions
+        got = tqmatmul(tx, tq, backend=backend, act_exponent=static_e).numpy()
+        assert np.array_equal(_bits(got), _bits(want)), backend
 
 
 def test_cpu_tensors_take_the_plain_version():
     _, tx, _, tq, _ = _site(3, 64, 16, 16, "ternary", 1, False)
-    before = ternary_matmul_fused.launches
+    before = (ternary_matmul_fused.launches, ternary_matmul.launches, quantize_rows.launches)
     tqdense(tx, tq, backend="cuda")  # a CPU tensor runs the plain version
-    assert ternary_matmul_fused.launches == before
+    tqdense(tx, tq, backend="cuda", fused=False)
+    tqmatmul(tx, tq, backend="cuda")
+    assert (ternary_matmul_fused.launches, ternary_matmul.launches, quantize_rows.launches) == before

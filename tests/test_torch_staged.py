@@ -271,3 +271,65 @@ def test_kv_mx_slot_reuse_matches_reference(jax_ptq_base):
     for name, leaf in jeng.cache.items():
         np.testing.assert_array_equal(teng.cache[name].numpy(), np.asarray(leaf), err_msg=name)
     assert (teng.cache["ke"].numpy()[:, :, 1:] == -127).all()  # blocks the second request never reached
+
+
+def _with_fused(plan, fused: bool):
+    """``plan`` with every site's fused knob set to ``fused`` (as
+    ``benchmarks/bench_decode.py`` builds its unfused plans)."""
+    return dataclasses.replace(
+        plan, site_precisions=tuple(dataclasses.replace(p, fused=fused) for p in plan.site_precisions))
+
+
+PROMPTS = [[5, 9, 2, 7, 11, 3, 3, 8, 1], [3, 1], [8] * 13, [2]]
+
+
+def _format_models(quant):
+    """The reference's and the port's PTQ smoke models (kv_int8) from the
+    same float weights: (jax cfg, jax qparams, jax plan, port qparams, port
+    plan, port api)."""
+    q = dict(quant, group_size=16, mode="ptq")
+    jcfg = dataclasses.replace(jconfigs.get_smoke(ARCH, JQuantConfig(backend="ref", **q)), kv_fmt="kv_int8")
+    japi = jbuild(jcfg)
+    params = japi.init(jax.random.PRNGKey(0))
+    jq, jplan, _ = jquantize_and_plan(japi, params)
+    tcfg = dataclasses.replace(tconfigs.get_smoke(ARCH, TQuantConfig(backend="cuda", **q)), kv_fmt="kv_int8")
+    tq, tplan, tapi = tquantize_and_plan(tbuild(tcfg, device="cpu"), params_from_jax(params, device="cpu"))
+    assert {p.fused for p in tplan.site_precisions} == {True}
+    return jcfg, jq, jplan, tq, tplan, tapi
+
+
+@pytest.mark.parametrize("quant,fused", [(dict(w_bits=4), True), (dict(fmt="mx"), True), (dict(w_bits=4), False)],
+                         ids=["int4", "mx", "int4-unfused"])
+def test_staged_tokens_match_reference_weight_formats(quant, fused):
+    """int4 (the paper's 4-bit setting) and mx smoke models, and int4 with
+    every site ``fused=False``: the port's StagedEngine (the cuda backend's
+    plain versions) gives the reference StagedEngine's greedy tokens (ref
+    backend) on the same plan."""
+    jcfg, jq, jplan, tq, tplan, tapi = _format_models(quant)
+    kw = dict(max_len=32, max_new=4)
+    want, _ = _run(jbuild(jcfg).with_plan(_with_fused(jplan, fused)), jq, JStaged, PROMPTS,
+                   sched=JSchedulerConfig(prefill_chunk=4), **kw)
+    got, _ = _run(tapi.with_plan(_with_fused(tplan, fused)), tq, StagedEngine, PROMPTS,
+                  sched=SchedulerConfig(prefill_chunk=4), **kw)
+    assert got == want and len(got) == 4
+
+
+def test_staged_nf4_matches_lockstep_and_reference_prefill():
+    """nf4: the port's staged tokens equal its lockstep tokens, and a
+    whole-prompt prefill (plus 2 decode steps) gives the reference's logits.
+    Token equality with the reference's StagedEngine does not hold on these
+    prompts: the 2-token chunk [3, 1] attends through the oracle's softmax,
+    whose ``exp`` rounds 1 ulp apart in torch and XLA, and the next 8-bit
+    DFP quantizer turns that into whole mantissa steps (logits 0.075 apart,
+    first token 246 against 154; ROADMAP Queue C)."""
+    jcfg, jq, jplan, tq, tplan, tapi = _format_models(dict(fmt="nf4"))
+    kw = dict(max_len=32, max_new=4)
+    stag, _ = _run(tapi, tq, StagedEngine, PROMPTS, sched=SchedulerConfig(prefill_chunk=4), **kw)
+    lock, _ = _run(tapi, tq, ServingEngine, PROMPTS, **kw)
+    assert stag == lock and len(stag) == 4
+    qapi = jbuild(jcfg).with_plan(jplan)
+    want = _prefill_then_decode(jax.jit(qapi.prefill), jax.jit(qapi.decode), qapi.init_cache, jq, jnp.asarray)
+    with torch.inference_mode():
+        got = _prefill_then_decode(tapi.prefill, tapi.decode, tapi.init_cache, tq, torch.from_numpy)
+    np.testing.assert_allclose(got, want, atol=5e-3)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
