@@ -16,7 +16,14 @@ Phases, in order; any failure exits non-zero:
                  fused int4 and nf4 on every site of a layer at M = 4 and
                  17/64/256, packed_qmm for all five formats, quantize_rows
                  (bf16, f32; NaN, exact-edge, zero and subnormal rows), all
-                 0 ulps, and the unfused site equal to the fused one
+                 0 ulps, and the unfused site equal to the fused one;
+                 flash_attention on every shape of the reference's tests and
+                 at full width (BH 128, S = T = 1024, hd 128), causal and not,
+                 float32 at 2e-5 and bf16 at 3e-2 and one bf16 ulp per
+                 element, and the masked first row; the full-width bf16
+                 causal call goes through the kernels API as its users call
+                 it (repro_torch.kernels.flash_attention), with its launches
+                 counted
   4. main     -- serve the full-width qwen3-8b (ternary PTQ, group 64, all
                  36 layers, bf16, random weights from a seeded generator,
                  quantized on the card one site at a time) through the
@@ -46,7 +53,19 @@ Phases, in order; any failure exits non-zero:
                  no fused launch), its tokens equal to the fused run's on
                  the same weights; the 2-layer int4 PTQ twin (qdense leg
                  bit-identical)
-  7. timings  -- kernel, plain version, library call (a yardstick the port
+  7. serve    -- the launcher (repro_torch.launch.serve main(argv)) at full
+                 width: qwen3-8b, 36 layers, ternary group 64, kv_int8, both
+                 flash flags, 4 slots, max_len 1024, 8 requests, 256-token
+                 chunks, through --engine staged and --engine lockstep; each
+                 one's tokens equal those of the same engine built here
+                 directly on the same seed and prompts; the same launcher
+                 under seeded --chaos with --retries 3 (finished requests
+                 keep the fault-free tokens, others fail with the retry
+                 budget spent); the armed containment matrix at 4 layers
+                 through both engines (every tick fault kind on the float
+                 model over kv_bf16, the logit kinds on the PTQ model over
+                 kv_int8): one victim, the others bit-identical
+  8. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
 
 The last two lines are the `kernels` JSON and the device JSON.
@@ -69,6 +88,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (the flash kernel's arithmetic)
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (logged beside the float32 bound)
 SEED = 0
 ARCH = "qwen3-8b"
 GROUP = 64
@@ -94,6 +114,13 @@ FLASH_DECODE = dict(b=4, t=1024, kh=8, g=4, hd=128)  # the staged decode tick
 FLASH_DECODE_VALID = [1, 300, 777, 1024]
 FLASH_PREFILL = dict(b=1, s=256, start=512, t=1024, kh=8, g=4, hd=128)  # one chunk
 SHORT = {"kv_bf16": "bf16", "kv_int8": "int8", "kv_mx": "mx"}
+# standalone flash_attention: the reference's test shapes (bh, s, t, hd, bq, bk), then the
+# full width: 4 sequences x 32 heads, S = T = 1024, hd 128
+ATTN_TEST_SHAPES = [(4, 64, 64, 32, 32, 32), (2, 128, 128, 64, 64, 32), (3, 64, 128, 32, 64, 64),
+                    (1, 256, 256, 16, 128, 128), (2, 64, 64, 32, 32, 32)]
+ATTN_FULL = (128, 1024, 1024, 128)
+ATTN_HEADS = 32  # BH 128 = 4 sequences x 32 heads
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # JSON row -> (kernel entry, mode); launches are counted per mode
 MODES = {
     "fused_qmm_ternary": ("ternary", "m<=8"), "fused_qmm_ternary_prefill": ("ternary", "m>8"),
@@ -106,6 +133,7 @@ MODES = {
     "packed_qmm_int4_prefill": ("int4_packed", "m>8"), "packed_qmm_int8": ("int8_packed", None),
     "packed_qmm_nf4": ("nf4_packed", None),
     "quantize_rows": ("quantize_rows", "m<=8"), "quantize_rows_prefill": ("quantize_rows", "m>8"),
+    "flash_attention": ("flash_attention", None),
 }
 FUSED_ROWS = [name for name in MODES if name.startswith("fused_qmm")]
 
@@ -233,9 +261,11 @@ def phase_parity(dev) -> dict:
     failures += _parity_prefill_rows(dev, gen, errs)
     failures += _parity_packed_flash(dev, gen, errs)
     failures += _parity_formats(dev, gen, errs)
+    attn_failures, attn_launches = _parity_flash_attention(dev, gen, errs)
+    failures += attn_failures
     if failures:
         raise SystemExit(f"parity failed: {failures}")
-    return errs
+    return errs, attn_launches
 
 
 def _parity_prefill_rows(dev, gen, errs) -> list:
@@ -420,6 +450,75 @@ def _parity_formats(dev, gen, errs) -> list:
     return failures
 
 
+def _attn_inputs(shape, dtype, gen, dev):
+    bh, s, t, hd = shape
+    return [torch.randn((bh, n, hd), generator=gen, device=dev).to(dtype) for n in (s, t, t)]
+
+
+def _bf16_ulps(got, want) -> float:
+    """Largest |got - want| in bf16 ulps of the larger magnitude, less a
+    1e-6 absolute allowance (the float32 sums both sides round from)."""
+    mag = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)  # |x| in [2^(e-1), 2^e): 2^(e-8)
+    return float(((got.float() - want.float()).abs() - 1e-6).clamp(min=0).div(ulp).max())
+
+
+def _parity_flash_attention(dev, gen, errs) -> tuple:
+    """flash_attention against its plain version: every shape of the
+    reference's tests and the full width, causal and not, float32 (2e-5)
+    and bf16 (3e-2, and at most one bf16 ulp apart per element: both sides
+    sum in float32 and round once); the masked first row sees only v[0].
+    The full-width bf16 causal call is the kernels API's main path, called
+    as its users call it with the counts reset just before: (failures, the
+    launches of that call)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    failures, launches = [], None
+    cases = [((bh, s, t, hd), dict(block_q=bq, block_k=bk)) for bh, s, t, hd, bq, bk in ATTN_TEST_SHAPES]
+    cases.append((ATTN_FULL, {}))
+    for shape, blocks in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _attn_inputs(shape, dtype, gen, dev)
+            for causal in (True, False):
+                main_path = shape == ATTN_FULL and dtype == torch.bfloat16 and causal
+                if main_path:
+                    _reset_counts()
+                    got = kernels.flash_attention(q, k, v)
+                    torch.cuda.synchronize()
+                    launches = _read_counts()
+                else:
+                    got = flash_attention(q, k, v, causal=causal, **blocks)
+                want = flash_attention_plain(q, k, v, causal=causal, **blocks)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                ok = got.dtype == dtype and bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype]
+                what = f"flash_attention BH={shape[0]} S={shape[1]} T={shape[2]} hd={shape[3]} {str(dtype)[6:]} causal={causal}"
+                note = ""
+                if dtype == torch.bfloat16:
+                    ulps = _bf16_ulps(got, want)
+                    ok = ok and ulps <= 1.0
+                    note = f", {ulps:.2f} bf16 ulps (at most 1)"
+                if main_path:
+                    note += f"; kernels API call, launches {launches['flash_attention']}"
+                log(f"parity {what}: max_abs_err={err:.3e} (atol {ATTN_TOL[dtype]}){note} {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(what)
+            del q, k, v
+    _require_launches(launches, ["flash_attention"], "the kernels API's flash_attention")
+    q = torch.ones((1, 32, 16), device=dev)
+    v = torch.arange(32, dtype=torch.float32, device=dev)[None, :, None] * torch.ones((1, 32, 16), device=dev)
+    out = flash_attention(q, q.clone(), v, causal=True, block_q=16, block_k=16)
+    torch.cuda.synchronize()
+    ok = abs(float(out[0, 0, 0])) <= 1e-6 and bool(torch.isfinite(out).all())
+    log(f"parity flash_attention masked first row: out[0, 0, 0] = {float(out[0, 0, 0]):.3e} (only v[0] = 0) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("flash_attention masked first row")
+    return failures, launches
+
+
 # ---------------------------------------------------------------------------
 # 4. main path
 # ---------------------------------------------------------------------------
@@ -445,11 +544,12 @@ def _boot(cfg, dev):
 def _entries():
     """Every counted kernel entry: the fused entries by format name, the
     packed ones as "<format>_packed", flash and quantize_rows."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_prefill import flash_attend
     from repro_torch.kernels.quantize import quantize_rows
     from repro_torch.quant.formats import get_format
 
-    out = {"flash": flash_attend, "quantize_rows": quantize_rows}
+    out = {"flash": flash_attend, "quantize_rows": quantize_rows, "flash_attention": flash_attention}
     for fmt in ("ternary", "int8", "int4", "nf4"):  # mx's entries are int8's
         out[fmt] = get_format(fmt).fused_kernel
         out[f"{fmt}_packed"] = get_format(fmt).kernel
@@ -865,7 +965,181 @@ def phase_formats(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 7. timings
+# 7. the serving launcher at full width, chaos, containment
+# ---------------------------------------------------------------------------
+SERVE_ARGV = ["--arch", ARCH, "--bits", "2", "--group-size", str(GROUP), "--kv-fmt", "kv_int8", "--flash-decode",
+              "--flash-prefill", "--slots", str(STAGED_SLOTS), "--max-len", str(STAGED_MAX_LEN), "--requests", "8",
+              "--prefill-chunk", str(STAGED_CHUNK), "--backend", "auto", "--device", "cuda"]
+CHAOS_SPEC = "rate=0.05,kinds=nan_logits|inf_logits|sat_logits|stall_tick,seed=0"
+SERVE_REQUIRED = {
+    "staged": ["fused_qmm_ternary", "fused_qmm_int8", "flash_attend_int8", "flash_attend_int8_prefill"],
+    "lockstep": ["fused_qmm_ternary", "fused_qmm_int8", "flash_attend_int8"],
+}
+
+
+def _serve_cli(engine: str, *extra) -> tuple:
+    """One run of the launcher's main(argv): (run, launches of the run)."""
+    from repro_torch.launch import serve
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    run = serve.main(SERVE_ARGV + ["--engine", engine, *extra])
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    st = run.engine.stats()
+    lat = st["latency"]
+    toks = sum(len(r.output) for r in run.done if r.status == "finished")
+    log(f"serve {engine}{' ' + ' '.join(extra) if extra else ''}: main() {time.perf_counter() - t0:.2f} s, boot "
+        f"{run.boot_s:.2f} s, run {run.run_s:.3f} s, {toks} tokens = {toks / run.run_s:.2f} tokens/s; TTFT "
+        f"{_pcts_ms(lat['ttft'])}; TPOT {_pcts_ms(lat['tpot'])}; launches "
+        f"{({k: n for k, n in launches.items() if n})}")
+    _require_launches(launches, SERVE_REQUIRED[engine], f"serve {engine}")
+    if run.engine.leftover()["in_flight"] or run.engine.leftover()["queued"] or len(run.done) != 8:
+        raise SystemExit(f"serve {engine}: the engine did not serve every request to its end")
+    return run, launches
+
+
+def _direct_outputs(engine: str, booted, prompts) -> dict:
+    """The same engine built here on ``_boot``'s weights, with the
+    launcher's arguments and prompts: {uid: tokens}."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request, SchedulerConfig, ServingEngine, StagedEngine
+
+    qparams, _, api = booted
+    kw = dict(n_slots=STAGED_SLOTS, max_len=STAGED_MAX_LEN)
+    if engine == "staged":
+        eng = StagedEngine(api, qparams, sched=SchedulerConfig(prefill_chunk=STAGED_CHUNK, policy="decode"), **kw)
+    else:
+        eng = ServingEngine(api, qparams, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=serve.NEW_TOKENS, max_retries=1))
+    done = eng.run()
+    if len(done) != len(prompts) or any(r.status != "finished" for r in done):
+        raise SystemExit(f"direct {engine}: not every request finished")
+    return {r.uid: r.output for r in done}
+
+
+def phase_serve(dev) -> dict:
+    """The launcher through both engines at full width, each against the
+    engine built directly; the launcher under chaos; the containment
+    matrix."""
+    from repro_torch.launch import serve
+
+    total: dict = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    outs = {}
+    for engine in ("staged", "lockstep"):
+        run, launches = _serve_cli(engine)
+        add(launches)
+        if any(r.status != "finished" or len(r.output) != serve.NEW_TOKENS for r in run.done):
+            raise SystemExit(f"serve {engine}: not every request finished with its tokens")
+        outs[engine] = {r.uid: r.output for r in run.done}
+        del run
+        torch.cuda.empty_cache()
+    cfg = _ptq_cfg(kv_fmt="kv_int8", flash_prefill=True)
+    booted = _boot(cfg, dev)
+    prompts = serve.draw_prompts(8, cfg.vocab)
+    for engine in ("staged", "lockstep"):
+        direct = _direct_outputs(engine, booted, prompts)
+        same = direct == outs[engine]
+        log(f"serve {engine}: launcher tokens {'equal' if same else 'DIFFER from'} the directly built engine's "
+            f"({sum(map(len, direct.values()))} tokens) {'OK' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit(f"serve {engine}: the launcher's tokens differ from the directly built engine's")
+    del booted
+    torch.cuda.empty_cache()
+    differ = sum(a != b for u in outs["staged"] for a, b in zip(outs["staged"][u], outs["lockstep"][u]))
+    log(f"serve: staged vs lockstep on the card: {differ} of {sum(map(len, outs['staged'].values()))} tokens differ "
+        "(S > 1 chunks and S == 1 steps sum in other orders; not gated, see ROADMAP Queue C)")
+
+    run, launches = _serve_cli("staged", "--chaos", CHAOS_SPEC, "--retries", "3")
+    add(launches)
+    h = run.engine.stats()["health"]
+    bad = [r.uid for r in run.done if not (
+        (r.status == "finished" and r.output == outs["staged"][r.uid])
+        or (r.status == "failed" and "retry budget exhausted" in (r.reason or "")))]
+    log(f"serve chaos: {h['faults']}; events {h['events']}; slow ticks {h['slow_ticks']}; statuses "
+        f"{sorted((r.uid, r.status) for r in run.done)}; {'OK' if not bad and h['faults']['injected'] else 'FAIL'}")
+    if bad or not h["faults"]["injected"]:
+        raise SystemExit(f"serve chaos: requests {bad} neither kept the fault-free tokens nor failed out of retries")
+    del run
+    torch.cuda.empty_cache()
+    _containment(dev)
+    return total
+
+
+def _containment(dev) -> None:
+    """The armed containment matrix at 4 layers, both engines: each fault
+    armed on slot 0 after two healthy steps fails exactly its victim (retry
+    budget 0) and leaves every other request's tokens bit-identical to the
+    fault-free run; a stalled tick is flagged and changes no token.  Every
+    tick fault kind on the float model over kv_bf16 (the reference's
+    setting: the 8-bit DFP casts map NaN to 0, so under PTQ a NaN cache row
+    never reaches the logit guardrail, and kv_int8 has no float leaf to
+    fill); the logit kinds on the PTQ model over kv_int8."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import (
+        TICK_FAULT_KINDS, FaultInjector, HealthConfig, Request, SchedulerConfig, ServingEngine, StagedEngine,
+    )
+
+    fp_cfg = _ptq_cfg(SMALL_DEPTH, kv_fmt="kv_bf16", flash_prefill=True)
+    fp_cfg = dataclasses.replace(fp_cfg, quant=dataclasses.replace(fp_cfg.quant, mode="fp"))
+    fp_api = build_model(fp_cfg, device=dev)
+    fp = (fp_api, fp_api.init(torch.Generator(device=dev).manual_seed(SEED)))
+    qparams, _, q_api = _boot(_ptq_cfg(SMALL_DEPTH, kv_fmt="kv_int8", flash_prefill=True), dev)
+    models = [("fp kv_bf16", fp, TICK_FAULT_KINDS), ("ptq kv_int8", (q_api, qparams), TICK_FAULT_KINDS[:3])]
+    prompts = serve.draw_prompts(4, fp_cfg.vocab)
+
+    def run(api, params, engine, inj=None, kind=None):
+        kw = dict(n_slots=4, max_len=64, faults=inj, health=HealthConfig(tick_slow_s=0.1))
+        if engine == "staged":
+            eng = StagedEngine(api, params, sched=SchedulerConfig(prefill_chunk=4), **kw)
+        else:
+            eng = ServingEngine(api, params, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+        done = eng.step() + eng.step()
+        if kind is not None:
+            inj.arm(kind, slot=0)
+        done += eng.run()
+        return eng, {r.uid: r for r in done}
+
+    failures = []
+    for label, (api, params), kinds in models:
+        for engine in ("lockstep", "staged"):
+            _, base = run(api, params, engine)
+            if any(r.status != "finished" for r in base.values()):
+                raise SystemExit(f"containment {label} {engine}: the fault-free run did not finish")
+            for kind in kinds:
+                inj = FaultInjector()
+                eng, got = run(api, params, engine, inj, kind)
+                h = eng.stats()["health"]
+                victim = inj.log[0].uid if len(inj.log) == 1 else None
+                others = [u for u in base if u != victim]
+                same = all(got[u].status == "finished" and got[u].output == base[u].output for u in others)
+                if kind == "stall_tick":  # a 0.25 s host stall: flagged, no token changed
+                    ok = same and h["tick_ms_worst"] >= 250.0 and got[victim].output == base[victim].output
+                else:
+                    ok = (victim is not None and got[victim].status == "failed" and same
+                          and h["events"]["quarantined"] == h["events"]["failed"] == 1)
+                log(f"containment {label} {engine} {kind}: victim uid {victim} -> {got[victim].status} "
+                    f"({got[victim].reason}); others bit-identical {same}; quarantined {h['events']['quarantined']} "
+                    f"slow ticks {h['slow_ticks']} {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"{label} {engine} {kind}")
+    del fp, models, qparams
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"containment failed: {failures}")
+
+
+# ---------------------------------------------------------------------------
+# 8. timings
 # ---------------------------------------------------------------------------
 class _Timer:
     """CUDA-event time of one call, device memory flushed before each run
@@ -999,7 +1273,37 @@ def phase_timings(dev) -> dict:
     for fmt in SHORT:  # one 256-token chunk from 512
         case = _flash_case(fmt, fp, gen, dev, s=fp["s"], starts=[fp["start"]], valid=[fp["start"] + fp["s"]])
         rows[f"flash_attend_{SHORT[fmt]}_prefill"] = _time_flash(timer, fmt, fp, case, "prefill chunk")
+    rows["flash_attention"] = _time_flash_attention(timer, gen, dev)
     return rows
+
+
+def _time_flash_attention(timer, gen, dev) -> dict:
+    """The standalone kernel at the parity phase's full-width shape (causal, bf16),
+    its plain version and SDPA with is_causal (also top-left aligned); the
+    bound from q, k, v read and the output written once, and 4 * hd float32
+    operations per live (query, key) pair (the causal half)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    bh, s, t, hd = ATTN_FULL
+    q, k, v = _attn_inputs(ATTN_FULL, torch.bfloat16, gen, dev)
+    ms = timer(lambda: flash_attention(q, k, v))
+    plain_ms = timer(lambda: flash_attention_plain(q, k, v), iters=3, warmup=1)
+    # SDPA on the (sequences, heads, S, hd) view of the same tensors: its fused kernels take 4-D inputs
+    q4, k4, v4 = (x.view(-1, ATTN_HEADS, x.shape[1], hd) for x in (q, k, v))
+    lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    pairs = sum(min(i + 1, t) for i in range(s))  # live keys per query row, summed
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = 4 * hd * pairs * bh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    # the same operations on the bf16 tensor cores: what SDPA's kernels can reach (not the row's bound,
+    # which prices the float32 arithmetic that the kernel and its plain version share)
+    tc_ms = max(t_bytes, flops / BF16_TC_OPS_PER_S * 1e3)
+    log(f"time flash_attention causal bf16 BH={bh} S={s} T={t} hd={hd}: kernel {ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP f32; by {row['bound_by']}), "
+        f"bf16 tensor-core bound {tc_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bf16 {lib_ms:.4f} ms")
+    return row
 
 
 def _time_flash(timer, fmt, shape, case, what) -> dict:
@@ -1053,6 +1357,7 @@ KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it 
     "packed_qmm_nf4": ("src/repro_torch/csrc/packed_qmm.cu", "src/repro/kernels/nf4_matmul.py:30"),
     "quantize_rows": ("src/repro_torch/csrc/quantize_rows.cu", "src/repro/kernels/quantize.py:45"),
     "flash_attend": ("src/repro_torch/csrc/flash_attend.cu", "src/repro/kernels/flash_prefill.py:158"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:77"),
 }
 
 
@@ -1072,11 +1377,14 @@ def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
-    errs = phase_parity(dev)
-    launches = phase_main(dev)
+    errs, launches = phase_parity(dev)
+    for k, v in phase_main(dev).items():
+        launches[k] += v
     for k, v in phase_staged(dev).items():
         launches[k] += v
     for k, v in phase_formats(dev).items():
+        launches[k] += v
+    for k, v in phase_serve(dev).items():
         launches[k] += v
     rows = phase_timings(dev)
     line = _kernel_line(errs, launches, rows)
@@ -1084,7 +1392,7 @@ def main() -> None:
         raise SystemExit("a measured number is not finite")
     log(f"total {time.perf_counter() - t_start:.1f} s; qdense ms/plain/library/bound of 2- and 4-bit rows are sums "
         f"over one layer's 7 sites (at M={M_ROWS}, and at M={PREFILL_ROWS[-1]} for *_prefill rows), int8 rows are "
-        f"lm_head at M={M_ROWS}; launches are summed over the lockstep, staged and format runs")
+        f"lm_head at M={M_ROWS}; launches are summed over the kernels API call of the parity phase and the lockstep, staged, format and serve runs")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

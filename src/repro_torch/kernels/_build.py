@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_qmm", "packed_qmm", "quantize_rows", "flash_attend")
+SOURCES = ("fused_qmm", "packed_qmm", "quantize_rows", "flash_attend", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",

@@ -1,0 +1,252 @@
+"""Serving launcher of the port (counterpart of ``repro/launch/serve.py``):
+quantize on boot, then serve seeded requests through the staged engine
+(default) or the lockstep oracle, with the fault-tolerance knobs.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \\
+        --device cpu --bits 2 --group-size 16 --requests 8 [--engine lockstep]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --bits 2 \\
+        --group-size 64 --kv-fmt kv_int8 --flash-decode --flash-prefill \\
+        --max-len 1024 --prefill-chunk 256          # full width, on the card
+
+Boot builds the model on ``--device`` (the card unless ``--device cpu``)
+and quantizes it one site at a time from a seeded ``torch.Generator``
+(``init_quantized``), so a full-width model never holds its float weights.
+The report is the reference's: compression and plan, the kv banner,
+finished requests and tokens/s, the fault-tolerance and watchdog lines,
+queue-wait / TTFT / TPOT percentiles and the first four outputs.  With the
+same arguments the staged and lockstep engines print the same greedy
+tokens.  ``--chaos "rate=0.05,kinds=nan_logits|stall_tick,seed=0"`` injects
+seeded faults (``serving/faults.py``), ``--retries`` budgets quarantine
+retries, ``--deadline-ms / --max-queue / --ttft-slo-ms`` gate admission and
+``--tpot-slo-ms`` arms overload degradation.
+
+``--artifact``, ``--save-artifact``, ``--calibrate``, ``--mesh`` and
+``--compile-cache`` are accepted but not offered yet: each exits with the
+step of ROADMAP Queue A it waits for.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.base import QuantConfig
+from repro_torch.core.quantizer import QTensor
+from repro_torch.models import build_model, init_quantized
+from repro_torch.models.kv_cache import resolve_kv_fmt
+from repro_torch.serving import (
+    AdmissionConfig, FaultInjector, HealthConfig, Request, SamplerConfig, SchedulerConfig, ServingEngine,
+    StagedEngine,
+)
+
+SEED = 0  # weights (torch.Generator) and prompts (numpy), as the reference's PRNGKey(0) / default_rng(0)
+PROMPT_TOKENS, NEW_TOKENS = 6, 8
+UNPORTED = {  # flag -> the step it waits for
+    "artifact": "the artifact read path (ROADMAP Queue A step 3)",
+    "save_artifact": "the artifact write path (ROADMAP Queue A steps 3 and 8)",
+    "calibrate": "calibration (ROADMAP Queue A step 8)",
+    "mesh": "multi-GPU serving (ROADMAP Queue A step 10)",
+    "compile_cache": "a counterpart of XLA's persistent compilation cache, which the port does not have "
+                     "(its kernels build once per checkout into build/kernels)",
+}
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What ``main`` served: the engine, the requests it completed (in
+    completion order), those shed or rejected at submit, and host-clock
+    seconds of boot (model, quantization, engine) and of the run."""
+
+    engine: Any
+    done: List[Request]
+    not_admitted: List[Request]
+    boot_s: float
+    run_s: float
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def weight_mb(qparams, dtype: torch.dtype):
+    """(MB the float weights would take in ``dtype``, MB they take packed)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    fp = q = 0
+    for leaf in _leaves(qparams):
+        if isinstance(leaf, QTensor):
+            fp += int(np.prod(leaf.shape)) * item
+            q += leaf.nbytes()
+        else:
+            fp += leaf.numel() * item
+            q += leaf.numel() * leaf.element_size()
+    return fp / 1e6, q / 1e6
+
+
+def draw_prompts(n: int, vocab: int) -> List[List[int]]:
+    """The launcher's ``n`` prompts of ``PROMPT_TOKENS`` tokens, drawn as
+    the reference's launcher draws them (numpy, seed 0)."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, PROMPT_TOKENS).tolist() for _ in range(n)]
+
+
+def build_config(args) -> configs.ArchConfig:
+    qc = QuantConfig(w_bits=args.bits, group_size=args.group_size, mode="ptq", backend=args.backend, fmt=args.fmt)
+    cfg = (configs.get_smoke if args.smoke else configs.get_config)(args.arch, qc)
+    # the KV format and the flash knobs are serving-time choices: the weights do not depend on them
+    return dataclasses.replace(cfg, kv_fmt=args.kv_fmt or cfg.kv_fmt,
+                               flash_decode=args.flash_decode or cfg.flash_decode,
+                               flash_prefill=args.flash_prefill or cfg.flash_prefill)
+
+
+def boot_quantize(args, device: torch.device):
+    """Quantize on boot: (api, qparams, plan), quantized one site at a time."""
+    cfg = build_config(args)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    qparams, plan, api = init_quantized(build_model(cfg, device=device), gen)
+    fp_mb, q_mb = weight_mb(qparams, getattr(torch, cfg.dtype))
+    print(f"arch={cfg.name} weights {fp_mb:.1f} MB -> {q_mb:.1f} MB ({fp_mb / q_mb:.1f}x)  plan: "
+          f"{len(plan.site_paths)} sites, {len(plan.act_exponents)} calibrated")
+    if args.plan_json:
+        with open(args.plan_json, "w") as f:
+            f.write(plan.to_json())
+        print(f"wrote QuantPlan to {args.plan_json}")
+    return api, qparams, plan
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve", description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None, choices=configs.ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--bits", type=int, default=2, choices=[2, 4, 8])
+    ap.add_argument("--fmt", default=None, metavar="NAME",
+                    help="registered weight format by name (nf4, mx); overrides the --bits ladder")
+    ap.add_argument("--group-size", type=int, default=16)
+    ap.add_argument("--kv-fmt", default=None, choices=["kv_bf16", "kv_int8", "kv_mx"],
+                    help="KV-cache format (models/kv_cache.py); overrides the config")
+    ap.add_argument("--flash-decode", action="store_true",
+                    help="single-token decode through the hand-written flash kernel")
+    ap.add_argument("--flash-prefill", action="store_true",
+                    help="chunked-prefill cache attends (and the in-chunk tail) through the flash kernel; "
+                         "independent of --flash-decode")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--engine", default="staged", choices=["lockstep", "staged"],
+                    help="staged (default): prefill / insert / generate stages with chunked prefill; "
+                         "lockstep: the shared-tick oracle")
+    ap.add_argument("--prefill-chunk", type=int, default=32, metavar="N",
+                    help="staged engine: max prompt tokens one prefill dispatch may consume")
+    ap.add_argument("--policy", default="decode", choices=["decode", "prefill"],
+                    help="staged engine stage arbitration: decode priority (TPOT) or prefill priority (TTFT)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--plan-json", default=None, help="write the compiled QuantPlan to this path")
+    ap.add_argument("--backend", default="auto", choices=["auto", "cuda", "ref"],
+                    help="qdense backend the plan carries: cuda (the kernels; plain versions on the CPU), "
+                         "ref (the bit-exact oracle), auto (cuda)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain PyTorch versions)")
+    # fault tolerance: deadlines, load shedding, overload SLOs, chaos
+    ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
+                    help="default per-request deadline; past it a request is expired, queued or in flight")
+    ap.add_argument("--max-queue", type=int, default=None, metavar="N",
+                    help="shed submissions once the queue holds N requests")
+    ap.add_argument("--ttft-slo-ms", type=float, default=None, metavar="MS",
+                    help="shed submissions whose estimated TTFT exceeds MS")
+    ap.add_argument("--tpot-slo-ms", type=float, default=None, metavar="MS",
+                    help="enter overload mode (smaller prefill chunks, decode priority) when recent TPOT p95 "
+                         "exceeds MS")
+    ap.add_argument("--retries", type=int, default=1, metavar="N",
+                    help="retry budget of fault-quarantined requests (re-queued with exponential backoff)")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="inject seeded faults, e.g. 'rate=0.01,kinds=nan_logits|kv_corrupt|stall_tick,seed=0'")
+    # accepted so that the reference's command lines parse; each exits naming its step
+    ap.add_argument("--artifact", default=None, metavar="DIR", help="not ported yet")
+    ap.add_argument("--save-artifact", default=None, metavar="DIR", help="not ported yet")
+    ap.add_argument("--calibrate", type=int, default=0, metavar="N", help="not ported yet")
+    ap.add_argument("--mesh", default=None, metavar="SPEC", help="not ported yet")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR", help="not ported yet")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
+    ap = parser()
+    args = ap.parse_args(argv)
+    for flag, step in UNPORTED.items():
+        if getattr(args, flag):
+            ap.error(f"--{flag.replace('_', '-')} is not ported yet: it waits for {step}")
+    if not args.arch:
+        ap.error("--arch is required")
+    device = torch.device(args.device)
+    t0 = time.perf_counter()
+    api, qparams, _ = boot_quantize(args, device)
+    cfg = api.cfg
+    # the banner always states both flash knobs
+    print(f"kv cache: fmt={resolve_kv_fmt(cfg)} flash_decode={cfg.flash_decode} flash_prefill={cfg.flash_prefill}")
+
+    faults = FaultInjector.from_spec(args.chaos) if args.chaos else None
+    if faults is not None:
+        print(f"chaos: rate={faults.rate} kinds={'|'.join(faults.kinds)}")
+    eng_kw = dict(n_slots=args.slots, max_len=args.max_len, sampler=SamplerConfig(temperature=args.temperature),
+                  admission=AdmissionConfig(max_queue=args.max_queue, ttft_slo_ms=args.ttft_slo_ms,
+                                            deadline_ms=args.deadline_ms),
+                  health=HealthConfig(overload_tpot_ms=args.tpot_slo_ms), faults=faults)
+    if args.engine == "staged":
+        eng = StagedEngine(api, qparams, sched=SchedulerConfig(prefill_chunk=args.prefill_chunk, policy=args.policy),
+                           **eng_kw)
+        print(f"engine=staged policy={args.policy} prefill_chunk={args.prefill_chunk}")
+    else:
+        eng = ServingEngine(api, qparams, **eng_kw)
+        print("engine=lockstep (shared-tick oracle)")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    boot_s = time.perf_counter() - t0
+    not_admitted = []
+    for i, prompt in enumerate(draw_prompts(args.requests, cfg.vocab)):
+        r = eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=NEW_TOKENS, max_retries=args.retries))
+        if r.status != "queued":
+            not_admitted.append(r)
+    t0 = time.perf_counter()
+    done = eng.run()
+    dt = time.perf_counter() - t0
+    finished = [r for r in done if r.status == "finished"]
+    toks = sum(len(r.output) for r in finished)
+    print(f"{len(finished)} finished / {toks} tokens in {dt:.1f}s ({toks / dt:.1f} tok/s); boot {boot_s:.1f}s")
+    health = eng.stats()["health"]
+    ev = health["events"]
+    if not_admitted or any(ev[k] for k in ("expired", "failed", "quarantined", "retried")):
+        print(f"  fault tolerance: shed={ev['shed']} rejected={ev['rejected']} expired={ev['expired']} "
+              f"quarantined={ev['quarantined']} retried={ev['retried']} failed={ev['failed']}")
+        for r in not_admitted[:4]:
+            print(f"    req {r.uid} {r.status}: {r.reason}")
+    print(f"  ticks={health['ticks']} slow={health['slow_ticks']} hung={health['hung_ticks']} "
+          f"tick_ewma={health['tick_ms_ewma']:.1f}ms overload_entered={health['overload_entered']}")
+    if health["faults"]:
+        print(f"  chaos injected: {health['faults']}")
+    left = eng.leftover()
+    if left["in_flight"] or left["queued"]:
+        print(f"UNFINISHED: {len(left['in_flight'])} in flight, {len(left['queued'])} queued (tick budget "
+              "expired; drain() returns them)")
+    lat = eng.stats()["latency"]
+    for name in ("queue_wait", "ttft", "tpot"):
+        p = lat[name]
+        if p is not None:
+            print(f"  {name:10s} p50={p['p50'] * 1e3:7.1f}ms p95={p['p95'] * 1e3:7.1f}ms "
+                  f"p99={p['p99'] * 1e3:7.1f}ms (n={p['n']})")
+    for r in sorted(done, key=lambda r: r.uid)[:4]:
+        print(f"  req {r.uid}: {r.output}")
+    return ServeRun(eng, done, not_admitted, boot_s, dt)
+
+
+if __name__ == "__main__":
+    main()

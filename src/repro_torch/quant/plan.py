@@ -8,6 +8,7 @@ the reference's stacked layer axis does (``blocks/attn/wq``, ...).
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Optional, Tuple
 
 import torch
@@ -43,6 +44,23 @@ class QuantPlan:
         if prec is not None and not prec.static_act:
             return None
         return e
+
+    def to_json(self) -> str:
+        """The reference's plan JSON (version 1), field for field."""
+        pol = None
+        if self.policy is not None:
+            pol = {
+                "default": dataclasses.asdict(self.policy.default),
+                "overrides": [[pat, dataclasses.asdict(p)] for pat, p in self.policy.overrides],
+            }
+        return json.dumps({
+            "version": 1,
+            "mode": self.mode,
+            "backend": self.backend,
+            "sites": [[path, dataclasses.asdict(prec)] for path, prec in zip(self.site_paths, self.site_precisions)],
+            "policy": pol,
+            "act_exponents": [[p, e] for p, e in self.act_exponents],
+        })
 
 
 def is_projection_site(key: str, val) -> bool:

@@ -1,8 +1,8 @@
-"""Staged-serving scheduler (counterpart of ``repro/serving/scheduler.py``,
-without admission control, which comes with the deadline slice).
+"""Staged-serving scheduler (counterpart of ``repro/serving/scheduler.py``).
 
 Everything host-side that decides which stage the staged engine runs next,
-how a prompt is cut into chunks and what the user-visible latency was:
+how a prompt is cut into chunks, whom to admit and what the user-visible
+latency was:
 
   * ``chunk_plan`` cuts a prompt into full ``chunk``-sized pieces plus a
     descending power-of-two remainder (13 -> [8, 4, 1]), so a prefill chunk
@@ -12,6 +12,9 @@ how a prompt is cut into chunks and what the user-visible latency was:
     work first;
   * ``degraded_chunk`` is the overload chunk size (largest power of two
     <= chunk / 2);
+  * ``AdmissionConfig`` + ``admission_decision`` shed a request at submit
+    when the queue is too deep or its estimated TTFT (``estimate_ttft_ms``)
+    already blows its SLO or deadline;
   * ``PrefillTask`` tracks one in-flight prefill (request, reserved slot,
     chunk cursor, private B=1 cache);
   * ``LatencyStats`` aggregates per-request queue wait, TTFT and TPOT and
@@ -60,6 +63,51 @@ def degraded_chunk(chunk: int) -> int:
     """Overload-mode prefill chunk: largest power of two <= max(1, chunk/2)."""
     half = max(1, chunk // 2)
     return 1 << (half.bit_length() - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionConfig:
+    """Load shedding and deadlines applied at ``engine.submit``.
+
+    max_queue: shed when the queue already holds this many requests (None
+        disables).  ttft_slo_ms: shed when the estimated TTFT exceeds this
+        budget (None disables).  deadline_ms: default per-request deadline
+        (a request's own wins); past it the request is expired, queued or in
+        flight.  retry_backoff_ms: base of the exponential backoff a
+        quarantined request waits before re-admission (doubles per retry).
+    """
+
+    max_queue: Optional[int] = None
+    ttft_slo_ms: Optional[float] = None
+    deadline_ms: Optional[float] = None
+    retry_backoff_ms: float = 20.0
+
+
+def estimate_ttft_ms(*, queued_tokens: int, n_queued: int, tick_ms: float, chunk: Optional[int] = None) -> float:
+    """A monotone floor of the TTFT of a request submitted now: the prefill
+    dispatches of every queued prompt (``ceil(tokens / chunk)`` staged, one
+    tick per token lockstep when ``chunk`` is None) plus one first-token
+    dispatch per queued request, at the recent EWMA tick time."""
+    if tick_ms <= 0.0:
+        return 0.0  # no dispatch history yet: admit and learn
+    if chunk is not None and chunk > 0:
+        prefill_dispatches = (queued_tokens + chunk - 1) // chunk
+    else:
+        prefill_dispatches = queued_tokens
+    return (prefill_dispatches + n_queued) * tick_ms
+
+
+def admission_decision(adm: AdmissionConfig, *, queue_depth: int, est_ttft_ms: float,
+                       deadline_ms: Optional[float] = None) -> Optional[str]:
+    """Shed reason for a submission, or None to admit: the queue is at
+    ``max_queue``, or the estimated TTFT exceeds the tighter of the TTFT SLO
+    and the request's own deadline."""
+    if adm.max_queue is not None and queue_depth >= adm.max_queue:
+        return f"queue depth {queue_depth} >= max_queue {adm.max_queue}"
+    budgets = [b for b in (adm.ttft_slo_ms, deadline_ms) if b is not None]
+    if budgets and est_ttft_ms > min(budgets):
+        return f"estimated TTFT {est_ttft_ms:.0f}ms exceeds budget {min(budgets):.0f}ms"
+    return None
 
 
 def next_action(policy: str, *, prefill_ready: bool, decode_ready: bool, last: str) -> str:

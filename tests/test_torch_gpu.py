@@ -276,3 +276,86 @@ def test_mx_long_rows_take_fewer_rows_per_block(dev, m):
     torch.cuda.synchronize()
     assert torch.equal(fused.view(torch.int32), want.view(torch.int32))
     assert torch.equal(unfused.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# standalone flash_attention; the guarded decode tick
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,t,hd", [(4, 64, 64, 32), (2, 128, 128, 64), (3, 64, 128, 32), (1, 256, 256, 16),
+                                       (2, 96, 160, 128), (1, 16, 40, 64)])
+def test_flash_attention_matches_plain(dev, causal, dtype, bh, s, t, hd):
+    """The kernel against its plain version: the reference's shapes, hd 128,
+    and tails shorter than the kernel's 32-row and 64-key tiles."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device=dev).manual_seed(s + t + hd)
+    q, k, v = (torch.randn((bh, n, hd), generator=gen, device=dev).to(dtype) for n in (s, t, t))
+    before = flash_attention.launches
+    blocks = dict(block_q=min(s, 32), block_k=min(t, 8))
+    got = flash_attention(q, k, v, causal=causal, **blocks)
+    want = flash_attention_plain(q, k, v, causal=causal, **blocks)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-5 if dtype == torch.float32 else 3e-2, rtol=0)
+
+
+def test_flash_attention_masked_row_sees_only_key_zero(dev):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.ones((1, 32, 16), device=dev)
+    v = torch.arange(32, dtype=torch.float32, device=dev)[None, :, None] * torch.ones((1, 32, 16), device=dev)
+    out = flash_attention(q, q.clone(), v, causal=True, block_q=16, block_k=16)
+    torch.cuda.synchronize()
+    assert float(out[0, 0, 0]) == pytest.approx(0.0, abs=1e-6) and bool(torch.isfinite(out).all())
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
+    """hd 48 has no kernel instance: a CUDA tensor raises, never falls back."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.randn((2, 32, 48), device=dev)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        flash_attention(q[..., :32].half().contiguous(), q[..., :32].half().contiguous(),
+                        q[..., :32].half().contiguous())
+    with pytest.raises(ValueError):  # k in another dtype
+        flash_attention(q[..., :32].contiguous(), q[..., :32].to(torch.bfloat16).contiguous(),
+                        q[..., :32].contiguous())
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("engine", ["lockstep", "staged"])
+def test_decode_tick_makes_one_host_sync(dev, monkeypatch, engine):
+    """With guardrails on, a generate tick moves its tokens and poison flags
+    to the host with one ``.cpu()`` and reads nothing else back."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import build_model, init_quantized
+    from repro_torch.serving import Request, SchedulerConfig, ServingEngine, StagedEngine
+
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-8b", QuantConfig(w_bits=2, group_size=16, mode="ptq")),
+                              flash_decode=True, flash_prefill=True, kv_fmt="kv_int8")
+    qparams, _, api = init_quantized(build_model(cfg, device=dev), torch.Generator(device=dev).manual_seed(0))
+    kw = dict(sched=SchedulerConfig(prefill_chunk=4)) if engine == "staged" else {}
+    eng = (StagedEngine if engine == "staged" else ServingEngine)(api, qparams, n_slots=2, max_len=32, **kw)
+    assert eng.health.guardrails
+    for i in range(2):
+        eng.submit(Request(uid=i, prompt=[3 + i, 5, 7], max_new_tokens=20))
+    for _ in range(8):  # past admission and prefill: every slot generating
+        eng.step()
+    calls = []
+    for name in ("cpu", "item", "tolist"):
+        orig = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name, lambda self, *a, _n=name, _f=orig, **k: (calls.append(_n), _f(
+            self, *a, **k))[1])
+    tick0 = eng._tick
+    for _ in range(3):
+        eng.step()
+    assert eng._tick == tick0 + 3 and calls == ["cpu"] * 3
+    assert all(len(r.output) > 0 for r in eng.slot_req)
