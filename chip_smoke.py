@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero:
                  ulps) and ternary at M = 17, 64, 256 (0 ulps); flash
                  kv_bf16 at decode; kv_int8 and kv_mx at decode (B 4,
                  T 1024); all three formats at a prefill chunk (S 256 from
-                 512, T 1024) and the in-chunk tail (S = T = 256), 5e-5;
+                 512, T 1024), the in-chunk tail (S = T = 256) and ragged
+                 chunks (S 31, 60, 132, 188, 255 from starts 77 and 600,
+                 global and a 300-token window), 5e-5; decode at valid 1
+                 and at full T in every format: 5e-5, two calls
+                 bit-identical, one CUDA launch a call (profiler trace);
                  fused int4 and nf4 on every site of a layer at M = 4 and
                  17/64/256, packed_qmm for all five formats, quantize_rows
                  (bf16, f32; NaN, exact-edge, zero and subnormal rows), all
@@ -67,6 +71,8 @@ Phases, in order; any failure exits non-zero:
                  kv_int8): one victim, the others bit-identical
   8. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
+                 (flash: at the bf16 tensor-core peak, the float32 one
+                 logged beside it)
 
 The last two lines are the `kernels` JSON and the device JSON.
 """
@@ -87,8 +93,8 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (the flash kernel's arithmetic)
-BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (logged beside the float32 bound)
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (logged beside the flash bounds)
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (the flash kernels' arithmetic)
 SEED = 0
 ARCH = "qwen3-8b"
 GROUP = 64
@@ -113,6 +119,10 @@ SMALL_DEPTH = 4  # layers of the kv_mx and kv_bf16 staged runs
 FLASH_DECODE = dict(b=4, t=1024, kh=8, g=4, hd=128)  # the staged decode tick
 FLASH_DECODE_VALID = [1, 300, 777, 1024]
 FLASH_PREFILL = dict(b=1, s=256, start=512, t=1024, kh=8, g=4, hd=128)  # one chunk
+# ragged chunk lengths (prime, the 900-token prompt's last chunk of 132) from
+# ragged starts of two batch rows, global and windowed
+FLASH_RAGGED_S = (31, 60, 132, 188, 255)
+FLASH_RAGGED = dict(b=2, t=1024, kh=8, g=4, hd=128, starts=(77, 600), window=300)
 SHORT = {"kv_bf16": "bf16", "kv_int8": "int8", "kv_mx": "mx"}
 # standalone flash_attention: the reference's test shapes (bh, s, t, hd, bq, bk), then the
 # full width: 4 sequences x 32 heads, S = T = 1024, hd 128
@@ -348,6 +358,71 @@ def _parity_packed_flash(dev, gen, errs) -> list:
             f"window={window}: max_abs_err={err:.3e} (atol 5e-5) {'OK' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"flash {fmt} {what} S={s} window={window}")
+    return failures + _parity_ragged_flash(dev, gen, errs) + _parity_decode(dev, gen, errs)
+
+
+def _parity_ragged_flash(dev, gen, errs) -> list:
+    """Chunk lengths that the kernel's 64-row tiles do not divide, every
+    format, from ragged starts, global and windowed, kernel vs plain at 5e-5."""
+    from repro_torch.kernels.flash_prefill import flash_attend, flash_attend_ref
+
+    fr = FLASH_RAGGED
+    failures = []
+    for fmt in SHORT:
+        for s in FLASH_RAGGED_S:
+            case = _flash_case(fmt, fr, gen, dev, s=s, starts=list(fr["starts"]), valid=[a + s for a in fr["starts"]])
+            for window in (None, fr["window"]):
+                if window is not None:
+                    case = case[:4] + (torch.tensor([[window]], dtype=torch.int32, device=dev),)
+                args = _flash_args(case)
+                got = flash_attend(*args, fmt=fmt)
+                want = flash_attend_ref(*args, fmt=fmt)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                key = f"flash_attend_{SHORT[fmt]}_prefill"
+                errs[key] = max(errs[key], err)
+                ok = bool(torch.isfinite(got).all()) and err <= 5e-5
+                log(f"parity flash {fmt} ragged chunk B={fr['b']} S={s} T={fr['t']} start={list(fr['starts'])} "
+                    f"window={window}: max_abs_err={err:.3e} (atol 5e-5) {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"flash {fmt} ragged S={s} window={window}")
+    return failures
+
+
+def _parity_decode(dev, gen, errs) -> list:
+    """Decode at the staged tick's shape with every row at valid = 1 and
+    every row at full T, every format: within 5e-5 of plain, two identical
+    calls bit-identical, and one CUDA launch a call (profiler trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_prefill import flash_attend, flash_attend_ref
+
+    fd = FLASH_DECODE
+    failures = []
+    with profile(activities=[ProfilerActivity.CUDA]):  # the first session of a process may miss its kernels
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    for fmt in SHORT:
+        for fill in (1, fd["t"]):
+            valid = [fill] * fd["b"]
+            args = _flash_args(_flash_case(fmt, fd, gen, dev, s=1, starts=[fill - 1] * fd["b"], valid=valid))
+            first = flash_attend(*args, fmt=fmt)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                second = flash_attend(*args, fmt=fmt)
+                torch.cuda.synchronize()
+            n_launch = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+            want = flash_attend_ref(*args, fmt=fmt)
+            torch.cuda.synchronize()
+            err = float((first - want).abs().max())
+            same = bool(torch.equal(first.view(torch.int32), second.view(torch.int32)))
+            errs[f"flash_attend_{SHORT[fmt]}"] = max(errs[f"flash_attend_{SHORT[fmt]}"], err)
+            ok = bool(torch.isfinite(first).all()) and err <= 5e-5 and same and n_launch == 1
+            log(f"parity flash {fmt} decode B={fd['b']} T={fd['t']} valid={fill}: max_abs_err={err:.3e} (atol 5e-5), "
+                f"two calls bit-identical {same}, CUDA launches a call {n_launch} (want 1) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash {fmt} decode valid={fill}")
     return failures
 
 
@@ -1294,15 +1369,11 @@ def _time_flash_attention(timer, gen, dev) -> dict:
     pairs = sum(min(i + 1, t) for i in range(s))  # live keys per query row, summed
     nbytes = 4 * q.numel() * q.element_size()
     flops = 4 * hd * pairs * bh
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
-    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
-    # the same operations on the bf16 tensor cores: what SDPA's kernels can reach (not the row's bound,
-    # which prices the float32 arithmetic that the kernel and its plain version share)
-    tc_ms = max(t_bytes, flops / BF16_TC_OPS_PER_S * 1e3)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **_bound(nbytes, flops, BF16_TC_OPS_PER_S))
+    f32_ms = max(row["t_bytes"], flops / F32_OPS_PER_S * 1e3)  # the bound before the tensor cores
     log(f"time flash_attention causal bf16 BH={bh} S={s} T={t} hd={hd}: kernel {ms:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP f32; by {row['bound_by']}), "
-        f"bf16 tensor-core bound {tc_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bf16 {lib_ms:.4f} ms")
+        f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak; by "
+        f"{row['bound_by']}), float32 bound {f32_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bf16 {lib_ms:.4f} ms")
     return row
 
 
@@ -1337,12 +1408,12 @@ def _time_flash(timer, fmt, shape, case, what) -> dict:
         cache = sum(2 * (n * kh * hd // 2 + -(-n // MX_KV_BLOCK) * kh) for n in live)
     nbytes = 2 * q.numel() * 4 + cache + 3 * b * 4  # q in, out, live cache, scalars
     flops = 4 * pairs * kh * g * hd  # q.k and p.v, multiply-add = 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
-    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, **_bound(nbytes, flops, BF16_TC_OPS_PER_S))
+    f32_ms = max(row["t_bytes"], flops / F32_OPS_PER_S * 1e3)  # the bound before the tensor cores
     log(f"time flash {fmt} {what} B={b} S={s} T={t} Kh={kh} G={g} hd={hd} valid={live}: kernel {ms:.4f} ms, "
-        f"bound {row['bound_ms']:.5f} ms ({nbytes / 1e6:.3f} MB live, {flops / 1e9:.3f} GFLOP f32; by {row['bound_by']}), "
-        f"plain {plain_ms:.4f} ms, sdpa bf16 {lib_ms:.4f} ms")
+        f"bound {row['bound_ms']:.5f} ms ({nbytes / 1e6:.3f} MB live, {flops / 1e9:.3f} GFLOP at the bf16 tensor-core "
+        f"peak; by {row['bound_by']}), float32 bound {f32_ms:.5f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa bf16 {lib_ms:.4f} ms")
     return row
 
 

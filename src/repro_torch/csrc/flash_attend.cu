@@ -3,271 +3,539 @@
 // repro/kernels/flash_prefill.py::flash_attend (_kernel, _dequant_tile),
 // reached at S == 1 through repro/kernels/flash_decode.py::flash_decode.
 // The wrapper, the plain PyTorch version and the design notes are in
-// src/repro_torch/kernels/flash_prefill.py.
+// src/repro_torch/kernels/flash_prefill.py; the tensor-core tile loop and
+// the split arithmetic in flash_mma.cuh.
 //
-// One kernel, grid (B * Kh, S / bq, splits), 128 threads.  A block owns one
-// (batch row, kv head, query block); the G query heads of the group ride as
-// R = bq * G rows.  Per key tile of tk keys it loads the K and V rows with
-// 16-byte loads and dequantizes them into float32 shared memory (kv_bf16:
-// cast; kv_int8: q * 2**e per (token, head); kv_mx: sign-extended nibbles,
-// low nibble = even channel, times 2**e per 32-token block -- all exact),
-// masks k < valid[b], k <= q_pos, q_pos - k < win with -1e30 like the
-// reference, and folds the tile into a running (m, l, acc) in shared memory:
-//   m' = max(m, max_j s), p = e^(s - m'), c = e^(m - m'),
-//   l' = l c + sum_j p,   acc' = acc c + p.V.
-// Tiles that hold no live key for any row of the block are skipped (they
-// would add exact zeros).
-//   splits == 1 (prefill chunks, S > 1): the block walks every key tile and
-//            writes acc / max(l, 1e-30).
-//   splits  > 1 (decode, S == 1; flash decoding): block z takes key tile z
-//            only and writes its (m, l, acc); a second launch combines:
-//            out = sum_z e^(m_z - M) acc_z / max(sum_z e^(m_z - M) l_z, 1e-30).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Rows.  The G query heads of a kv head ride as rows: row r of (batch row b,
+// kv head kh) is query s = r / G, head g = r % G, at position q_start[b] + s.
+// Key j is live for it iff j < valid[b], j <= pos and pos - j < window;
+// masked scores are -1e30 like the reference's.  Cache values dequantize
+// exactly (kv_bf16: as is; kv_int8: q * 2**e per (token, head); kv_mx:
+// sign-extended nibbles, low nibble = even channel, times 2**e per 32-token
+// block -- at most 8 significant bits, a normal number: exact in bf16).
+//
+// S > 1 (prefill chunks): grid (B * Kh, ceil(S * G / 64)), 4 warps.  A block
+// owns 64 rows (a ragged last tile masks itself), each warp 16.  q * scale
+// goes into shared memory as three bf16 planes (exact); key tiles of 64 are
+// double-buffered with cp.async (kv_bf16 straight into the planes the tensor
+// cores read; kv_int8 and kv_mx as packed bytes, dequantized into one bf16
+// K and one V plane per tile), and flash::tile_step runs the tile on the
+// tensor cores with p in three bf16 terms.  Tiles wholly outside the block's
+// live keys (past valid[b], after its last query, before its first query's
+// window) are skipped, and so are, per warp, tiles outside the warp's: they
+// would add exact zeros.
+//
+// S == 1 (decode): grid (B * Kh, splits), 4 warps, on the CUDA cores (G
+// rows a pair are too few for an mma tile).  Split z covers keys
+// [z * ks, (z + 1) * ks) of the live range; HD / 8 lanes share a key row,
+// each loading its 8 values straight into registers (16 bytes of kv_bf16, 8
+// of kv_int8, 4 of kv_mx) and dotting them with its 8 query values per row.
+// The split writes its (m, l, acc) to the partials, then counts itself in on
+// the pair's arrival counter; the last block of the pair to arrive combines
+// the partials in split order (so the result does not depend on which block
+// is last):  out = sum_z e^(m_z - M) acc_z / max(sum_z e^(m_z - M) l_z, 1e-30),
+// and resets the counter for the next call.  One launch a decode call.
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRc = 8;  // query rows held in registers at a time
+using flash::kNegInf;
+using flash::kWarpRows;
+using flash::Ld;
+using flash::RowState;
+
+constexpr int kThreads = 128, kWarps = kThreads / 32;
+constexpr int kRows = kWarpRows * kWarps;  // prefill rows a block
+constexpr int kTile = 64;                  // prefill keys a tile
 constexpr int kMxBlock = 32;
-constexpr float kNegInf = -1e30f;
+constexpr int kMaxG = 8;  // decode rows held in registers at a time
 enum Fmt { kBf16 = 0, kInt8 = 1, kMx = 2 };
 
 struct Shape {
-  int S, T, Kh, G, hd, bq, tk, splits;
+  int S, T, Kh, G, hd, splits, ks;
 };
 
-// 2**e for an integer e clamped to [-126, 127], from the exponent bits (as
-// repro_torch/core/dfp.py::exp2i).
-__device__ __forceinline__ float exp2i(int e) {
-  e = min(max(e, -126), 127);
-  return __int_as_float((e + 127) << 23);
+template <int FMT>
+__host__ __device__ constexpr int row_bytes(int hd) {
+  return FMT == kBf16 ? 2 * hd : (FMT == kInt8 ? hd : hd / 2);
 }
 
-// Keys [j0, j0 + tk) of (b, kh) dequantized into dst[tk][hd + 1] float32.
-template <int FMT>
-__device__ __forceinline__ void load_tile(float* dst, const void* src, const int8_t* ex, int b, int kh,
-                                          int j0, const Shape& sh) {
-  constexpr int kPer = FMT == kBf16 ? 8 : (FMT == kInt8 ? 16 : 32);  // values per 16 bytes
-  const int hd = sh.hd, ld = hd + 1, chunks = hd / kPer;
-  const size_t row_bytes = FMT == kBf16 ? 2 * hd : (FMT == kInt8 ? hd : hd / 2);
-  const char* base = static_cast<const char*>(src);
-  for (int c = threadIdx.x; c < sh.tk * chunks; c += kThreads) {
-    const int jj = c / chunks, part = c % chunks, j = j0 + jj;
-    const size_t row = (static_cast<size_t>(b) * sh.T + j) * sh.Kh + kh;
-    const uint4 val = __ldg(reinterpret_cast<const uint4*>(base + row * row_bytes) + part);
-    float* o = dst + jj * ld + part * kPer;
-    if constexpr (FMT == kBf16) {
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&val);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[2 * i] = __low2float(h[i]), o[2 * i + 1] = __high2float(h[i]);
-    } else if constexpr (FMT == kInt8) {
-      const float s = exp2i(ex[row]);
-      const int8_t* q = reinterpret_cast<const int8_t*>(&val);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) o[i] = static_cast<float>(q[i]) * s;
-    } else {
-      const size_t erow = (static_cast<size_t>(b) * (sh.T / kMxBlock) + j / kMxBlock) * sh.Kh + kh;
-      const float s = exp2i(ex[erow]);
-      const uint8_t* q = reinterpret_cast<const uint8_t*>(&val);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int lo = q[i] & 0xF, hi = q[i] >> 4;
-        o[2 * i] = static_cast<float>(lo >= 8 ? lo - 16 : lo) * s;
-        o[2 * i + 1] = static_cast<float>(hi >= 8 ? hi - 16 : hi) * s;
-      }
-    }
-  }
-}
+// prefill shared memory, in bytes: three Q planes, then
+//   kv_bf16: [2 stages][K, V][kTile][kLd] bf16 (the cp.async targets)
+//   packed:  one K and one V plane, then [2 stages][K, V][kTile][row bytes],
+//            then [2 stages][K, V][kTile] int8 exponents (kv_mx uses 2 a tile)
+template <int FMT, int HD>
+struct Prefill {
+  static constexpr int kLd = Ld<HD>::value, kQPlane = kRows * kLd, kKvPlane = kTile * kLd;
+  static constexpr int kRow = row_bytes<FMT>(HD);
+  static constexpr size_t kQBytes = 2 * 3 * static_cast<size_t>(kQPlane);
+  static constexpr size_t kPlaneBytes = 2 * (FMT == kBf16 ? 4 : 2) * static_cast<size_t>(kKvPlane);
+  static constexpr size_t kRawBytes = FMT == kBf16 ? 0 : 2 * 2 * static_cast<size_t>(kTile) * kRow;
+  static constexpr size_t kExpBytes = FMT == kBf16 ? 0 : 2 * 2 * kTile;
+  static constexpr size_t kSmem = kQBytes + kPlaneBytes + kRawBytes + kExpBytes;
+};
 
-template <int FMT>
+template <int FMT, int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const float* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
-             const int8_t* __restrict__ ke, const int8_t* __restrict__ ve, const int* __restrict__ q_start,
-             const int* __restrict__ valid, const int* __restrict__ window, float* __restrict__ part_ml,
-             float* __restrict__ part_acc, float* __restrict__ o, Shape sh, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.x / sh.Kh, kh = blockIdx.x % sh.Kh, qi = blockIdx.y, sp = blockIdx.z;
-  const int R = sh.bq * sh.G, hd = sh.hd, tk = sh.tk, ld = hd + 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = q_start[b] + qi * sh.bq, vl = valid[b], win = window[0];
+prefill_kernel(const float* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
+               const int8_t* __restrict__ ke, const int8_t* __restrict__ ve, const int* __restrict__ q_start,
+               const int* __restrict__ valid, const int* __restrict__ window, float* __restrict__ o, Shape sh,
+               float scale) {
+  using P = Prefill<FMT, HD>;
+  constexpr int kLd = P::kLd, kChunks = P::kRow / 16;  // 16-byte chunks of a cache row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* kvs = reinterpret_cast<__nv_bfloat16*>(smem + P::kQBytes);
+  unsigned char* raw = smem + P::kQBytes + P::kPlaneBytes;
+  int8_t* es = reinterpret_cast<int8_t*>(raw + P::kRawBytes);
 
-  float* qs = sm;              // [R][hd] scaled queries
-  float* acc = qs + R * hd;    // [R][hd] running unnormalized P.V
-  float* sc = acc + R * hd;    // [R][tk] scores, then probabilities
-  float* mrow = sc + R * tk;   // [R] running max
-  float* lrow = mrow + R;      // [R] running sum
-  float* crow = lrow + R;      // [R] this tile's correction e^(m - m')
-  float* kt = crow + R;        // [tk][ld] dequantized keys
-  float* vt = kt + tk * ld;    // [tk][ld] dequantized values
+  const int b = blockIdx.x / sh.Kh, kh = blockIdx.x % sh.Kh;
+  const int R = sh.S * sh.G, r0 = blockIdx.y * kRows, r_last = min(r0 + kRows, R) - 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qs0 = q_start[b], vl = min(valid[b], sh.T), win = window[0];
+  // live keys of the block: [k_lo, k_hi)
+  const int k_lo = max(qs0 + r0 / sh.G - win + 1, 0);
+  const int k_hi = min(vl, qs0 + r_last / sh.G + 1);
+  const int t_begin = k_lo / kTile, t_end = k_hi > k_lo ? (k_hi + kTile - 1) / kTile : t_begin;
+  const char* kc = static_cast<const char*>(k);
+  const char* vc = static_cast<const char*>(v);
 
-  for (int i = tid; i < R * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    const int s = qi * sh.bq + r / sh.G, g = r % sh.G;
-    qs[i] = q[((static_cast<size_t>(b) * sh.S + s) * sh.Kh + kh) * sh.G * hd + g * hd + d] * scale;
-    acc[i] = 0.0f;
+  // key tile `tile` -> stage `st`: packed rows by cp.async (keys past T
+  // zero-filled), and for the packed formats the exponents, loaded into
+  // registers now and stored at the top of the iteration that uses them
+  auto cache_row = [&](int j) { return (static_cast<size_t>(b) * sh.T + j) * sh.Kh + kh; };
+  auto issue = [&](int tile, int st) {
+    const int j0 = tile * kTile;
+    for (int c = tid; c < 2 * kTile * kChunks; c += kThreads) {
+      const int which = c / (kTile * kChunks), jj = (c / kChunks) % kTile, part = c % kChunks, j = j0 + jj;
+      const char* src = (which ? vc : kc) + cache_row(min(j, sh.T - 1)) * P::kRow + part * 16;
+      void* dst;
+      if constexpr (FMT == kBf16)
+        dst = kvs + ((st * 2 + which) * kTile + jj) * kLd + part * 8;
+      else
+        dst = raw + ((st * 2 + which) * kTile + jj) * P::kRow + part * 16;
+      flash::cp_async16(dst, src, j < sh.T);
+    }
+  };
+  auto load_exp = [&](int tile) -> int {  // thread tid < 2 kTile: exponent tid % kTile of K (tid < kTile) or V
+    const int which = tid / kTile, jj = tid % kTile, j = tile * kTile + jj;
+    const int8_t* e = which ? ve : ke;
+    if (FMT == kBf16 || tid >= 2 * kTile) return 0;
+    if constexpr (FMT == kInt8) {
+      return j < sh.T ? e[cache_row(j)] : 0;
+    } else {
+      if (jj >= kTile / kMxBlock) return 0;
+      const int blk = tile * (kTile / kMxBlock) + jj;
+      return blk < sh.T / kMxBlock ? e[(static_cast<size_t>(b) * (sh.T / kMxBlock) + blk) * sh.Kh + kh] : 0;
+    }
+  };
+  int e_next = 0;
+  if (t_begin < t_end) {
+    issue(t_begin, 0);
+    e_next = load_exp(t_begin);
   }
-  for (int r = tid; r < R; r += kThreads) mrow[r] = kNegInf, lrow[r] = 0.0f;
+  flash::cp_async_commit();
 
-  // live keys of the block lie in [k_lo, k_hi): past the fill level, after
-  // the last query, or outside the first query's window every row masks
-  const int k_hi = min(vl, q0 + sh.bq);
-  const int k_lo = q0 - win + 1;
-  const int t_begin = sh.splits > 1 ? sp : 0, t_end = sh.splits > 1 ? sp + 1 : sh.T / tk;
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int j0 = tile * tk;
-    if (j0 >= k_hi || j0 + tk <= k_lo) continue;  // uniform over the block
-    __syncthreads();  // the previous tile is done with kt, vt and sc
-    load_tile<FMT>(kt, k, ke, b, kh, j0, sh);
-    load_tile<FMT>(vt, v, ve, b, kh, j0, sh);
-    __syncthreads();
+  // q * scale -> three bf16 planes; rows past S * G are zero
+  for (int c = tid; c < kRows * (HD / 8); c += kThreads) {
+    const int r = c / (HD / 8), d = (c % (HD / 8)) * 8, row = r0 + r;
+    float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (row < R) {
+      const int s = row / sh.G, g = row % sh.G;
+      const float* src = q + ((static_cast<size_t>(b) * sh.S + s) * sh.Kh + kh) * sh.G * HD + g * HD + d;
+      const float4 a = *reinterpret_cast<const float4*>(src), c4 = *reinterpret_cast<const float4*>(src + 4);
+      x[0] = a.x * scale, x[1] = a.y * scale, x[2] = a.z * scale, x[3] = a.w * scale;
+      x[4] = c4.x * scale, x[5] = c4.y * scale, x[6] = c4.z * scale, x[7] = c4.w * scale;
+    }
+    flash::store_split8<3>(qs + r * kLd + d, P::kQPlane, x);
+  }
 
-    // masked scores, a thread per (row, key)
-    for (int i = tid; i < R * tk; i += kThreads) {
-      const int r = i / tk, jj = i % tk;
-      const int kp = j0 + jj, qpos = q0 + r / sh.G;
-      float s = kNegInf;
-      if (kp < vl && kp <= qpos && qpos - kp < win) {
-        const float* kr = kt + jj * ld;
-        const float* qr = qs + r * hd;
-        float a = 0.0f;
-        for (int d = 0; d < hd; ++d) a = fmaf(qr[d], kr[d], a);
-        s = a;
+  // the warp's rows and live keys
+  const int w0 = r0 + warp * kWarpRows, w_last = min(w0 + kWarpRows, R) - 1, g = lane >> 2;
+  const int wk_lo = max(qs0 + w0 / sh.G - win + 1, 0);
+  const int wk_hi = min(vl, qs0 + w_last / sh.G + 1);
+  int pos[2];  // positions of rows g and g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) pos[h] = qs0 + (w0 + g + 8 * h) / sh.G;
+
+  RowState<HD> st;
+  st.init();
+  for (int tile = t_begin, it = 0; tile < t_end; ++tile, ++it) {
+    const int stage = it & 1;
+    if constexpr (FMT != kBf16)
+      if (tid < 2 * kTile) es[stage * 2 * kTile + tid] = static_cast<int8_t>(e_next);
+    __syncthreads();  // every warp is done with the stage (and planes) about to be refilled
+    if (tile + 1 < t_end) {
+      issue(tile + 1, stage ^ 1);
+      e_next = load_exp(tile + 1);
+    }
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();
+    __syncthreads();  // tile `tile` has landed for every thread
+    const __nv_bfloat16* kp;
+    if constexpr (FMT == kBf16) {
+      kp = kvs + stage * 2 * P::kKvPlane;
+    } else {  // packed rows -> one bf16 plane each of K and V
+      constexpr int kPer = FMT == kInt8 ? 16 : 32;  // values in 16 bytes
+      const unsigned char* src = raw + stage * 2 * kTile * P::kRow;
+      const int8_t* ex = es + stage * 2 * kTile;
+      for (int c = tid; c < 2 * kTile * kChunks; c += kThreads) {
+        const int which = c / (kTile * kChunks), jj = (c / kChunks) % kTile, part = c % kChunks;
+        const uint4 u = *reinterpret_cast<const uint4*>(src + (which * kTile + jj) * P::kRow + part * 16);
+        __nv_bfloat16* dst = kvs + which * P::kKvPlane + jj * kLd + part * kPer;
+        if constexpr (FMT == kInt8) {
+          const float sc = flash::exp2i(ex[which * kTile + jj]);
+          const int8_t* m = reinterpret_cast<const int8_t*>(&u);
+          float x[8];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(m[8 * h + i]) * sc;
+            flash::store_split8<1>(dst + 8 * h, 0, x);
+          }
+        } else {
+          const float sc = flash::exp2i(ex[which * kTile + jj / kMxBlock]);
+          const uint8_t* m = reinterpret_cast<const uint8_t*>(&u);
+          float x[8];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int lo = m[4 * h + i] & 0xF, hi = m[4 * h + i] >> 4;
+              x[2 * i] = static_cast<float>(lo >= 8 ? lo - 16 : lo) * sc;
+              x[2 * i + 1] = static_cast<float>(hi >= 8 ? hi - 16 : hi) * sc;
+            }
+            flash::store_split8<1>(dst + 8 * h, 0, x);
+          }
+        }
       }
-      sc[i] = s;
+      __syncthreads();
+      kp = kvs;
+    }
+    const int j0 = tile * kTile;
+    if (w0 < R && j0 < wk_hi && j0 + kTile > wk_lo) {  // warp-uniform
+      auto live = [&](int h, int jj) {
+        const int key = j0 + jj;
+        return key < vl && key <= pos[h] && pos[h] - key < win;
+      };
+      flash::tile_step<HD, kTile, 3, 1, 3, 1>(st, qs + warp * kWarpRows * kLd, P::kQPlane, kp, kp + P::kKvPlane, 0,
+                                              live);
+    }
+  }
+  flash::cp_async_wait<0>();
+
+  if (w0 < R) {
+    st.finish([&](int h, int col, float a, float c) {
+      const int row = w0 + g + 8 * h;
+      if (row >= R) return;
+      const int s = row / sh.G, gg = row % sh.G;
+      float* dst = o + ((static_cast<size_t>(b) * sh.S + s) * sh.Kh + kh) * sh.G * HD + gg * HD + col;
+      *reinterpret_cast<float2*>(dst) = make_float2(a, c);
+    });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode
+// ---------------------------------------------------------------------------
+
+// One lane's 8 values of a cache row: 16 bytes of kv_bf16, 8 of kv_int8,
+// 4 of kv_mx, loaded as one word and dequantized in registers.
+template <int FMT>
+struct Raw8 {
+  using T = uint4;
+};
+template <>
+struct Raw8<kInt8> {
+  using T = uint2;
+};
+template <>
+struct Raw8<kMx> {
+  using T = uint32_t;
+};
+
+template <int FMT, int HD>
+__device__ __forceinline__ typename Raw8<FMT>::T load8(const void* c, size_t row, int part) {
+  using T = typename Raw8<FMT>::T;
+  return __ldg(reinterpret_cast<const T*>(static_cast<const char*>(c) + row * row_bytes<FMT>(HD)) + part);
+}
+
+template <int FMT>
+__device__ __forceinline__ void dequant8(float (&x)[8], typename Raw8<FMT>::T u, float sc) {
+  if constexpr (FMT == kBf16) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[2 * i] = __low2float(h[i]), x[2 * i + 1] = __high2float(h[i]);
+  } else if constexpr (FMT == kInt8) {
+    const int8_t* m = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(m[i]) * sc;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int byte = (u >> (8 * i)) & 0xFF, lo = byte & 0xF, hi = byte >> 4;
+      x[2 * i] = static_cast<float>(lo >= 8 ? lo - 16 : lo) * sc;
+      x[2 * i + 1] = static_cast<float>(hi >= 8 ? hi - 16 : hi) * sc;
+    }
+  }
+}
+
+// The cache rows a lane visits, kBatch at a time: all kBatch loads are
+// issued before the first is used, so their latencies overlap.
+constexpr int kBatch = 8;
+template <int FMT, int HD>
+struct RowBatch {
+  typename Raw8<FMT>::T raw[kBatch];
+  int8_t ex[kBatch];
+
+  // keys first + i * stride (i < kBatch), clamped to [.., last]
+  template <class Rows>
+  __device__ __forceinline__ void load(const void* c, const int8_t* e, int first, int stride, int last, int part,
+                                       Rows rows) {
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      size_t row, erow;
+      rows(min(first + i * stride, last), row, erow);
+      raw[i] = load8<FMT, HD>(c, row, part);
+      if constexpr (FMT != kBf16) ex[i] = __ldg(e + erow);
+    }
+  }
+  __device__ __forceinline__ void values(float (&x)[8], int i) const {
+    dequant8<FMT>(x, raw[i], FMT == kBf16 ? 1.0f : flash::exp2i(ex[i]));
+  }
+};
+
+// decode shared memory, in floats: scores [kMaxG][ks], per-warp partial
+// accumulators [kWarps][kMaxG][HD], row (max, sum) [kMaxG][2]
+__host__ __device__ constexpr size_t decode_smem(int hd, int ks) {
+  return sizeof(float) * (static_cast<size_t>(kMaxG) * ks + static_cast<size_t>(kWarps) * kMaxG * hd + 2 * kMaxG);
+}
+
+template <int FMT, int HD>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const float* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
+              const int8_t* __restrict__ ke, const int8_t* __restrict__ ve, const int* __restrict__ q_start,
+              const int* __restrict__ valid, const int* __restrict__ window, float* __restrict__ part,
+              int* __restrict__ counters, float* __restrict__ o, Shape sh, float scale) {
+  constexpr int L = HD / 8, KW = 32 / L;  // lanes a key row, keys a warp step
+  constexpr int kSlot = HD + 2;           // partial of one row: m, l, acc[HD]
+  extern __shared__ __align__(16) float dsm[];
+  float* sc = dsm;                             // [kMaxG][ks]
+  float* red = sc + kMaxG * sh.ks;             // [kWarps][kMaxG][HD]
+  float* ml = red + kWarps * kMaxG * HD;       // [kMaxG][2]
+  __shared__ int is_last;
+
+  const int pair = blockIdx.x, b = pair / sh.Kh, kh = pair % sh.Kh, z = blockIdx.y, nz = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, sub = lane / L, pt = lane % L;
+  const int pos = q_start[b], win = window[0];
+  const int lo = max(max(pos - win + 1, 0), z * sh.ks);
+  const int hi = min(min(min(valid[b], pos + 1), sh.T), (z + 1) * sh.ks);
+  auto rows = [&](int key, size_t& row, size_t& erow) {
+    row = (static_cast<size_t>(b) * sh.T + key) * sh.Kh + kh;
+    erow = FMT == kMx ? (static_cast<size_t>(b) * (sh.T / kMxBlock) + key / kMxBlock) * sh.Kh + kh : row;
+  };
+
+  for (int g0 = 0; g0 < sh.G; g0 += kMaxG) {
+    const int ng = min(kMaxG, sh.G - g0);
+    float* slot = part + ((static_cast<size_t>(pair) * nz + z) * sh.G + g0) * kSlot;
+    if (hi <= lo) {  // no live key in this split
+      for (int i = tid; i < ng * kSlot; i += kThreads) slot[i] = i % kSlot == 0 ? kNegInf : 0.0f;
+      continue;
+    }
+    float qv[kMaxG][8];
+#pragma unroll
+    for (int gg = 0; gg < kMaxG; ++gg) {
+      const float* src = q + ((static_cast<size_t>(b) * sh.Kh + kh) * sh.G + g0 + gg) * HD + pt * 8;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qv[gg][i] = gg < ng ? src[i] * scale : 0.0f;
+    }
+    // scores: the L lanes of a key row each dot 8 values, then sum across
+    constexpr int kStep = kWarps * KW;  // keys of one step of the block
+    for (int base = lo + warp * KW; base < hi; base += kBatch * kStep) {
+      RowBatch<FMT, HD> rb;
+      rb.load(k, ke, base + sub, kStep, hi - 1, pt, rows);
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (base + i * kStep >= hi) break;  // warp-uniform
+        const int key = base + i * kStep + sub;
+        float x[8];
+        rb.values(x, i);
+        float d[kMaxG];
+#pragma unroll
+        for (int gg = 0; gg < kMaxG; ++gg) {
+          float a = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) a = fmaf(qv[gg][j], x[j], a);
+          d[gg] = a;
+        }
+#pragma unroll
+        for (int off = L / 2; off; off >>= 1)
+#pragma unroll
+          for (int gg = 0; gg < kMaxG; ++gg) d[gg] += __shfl_xor_sync(0xffffffffu, d[gg], off);
+        if (key < hi && pt == 0)
+#pragma unroll
+          for (int gg = 0; gg < kMaxG; ++gg)
+            if (gg < ng) sc[gg * sh.ks + key - lo] = d[gg];
+      }
     }
     __syncthreads();
-
-    // online-softmax update, a warp per row
-    for (int r = warp; r < R; r += kWarps) {
+    // max, p = e^(s - m) and sum of each row, a warp a row
+    const int n = hi - lo;
+    for (int gg = warp; gg < ng; gg += kWarps) {
       float mx = kNegInf;
-      for (int jj = lane; jj < tk; jj += 32) mx = fmaxf(mx, sc[r * tk + jj]);
+      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sc[gg * sh.ks + j]);
 #pragma unroll
       for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = mrow[r], m_new = fmaxf(m_old, mx);
       float sum = 0.0f;
-      for (int jj = lane; jj < tk; jj += 32) {
-        const float p = expf(sc[r * tk + jj] - m_new);
-        sc[r * tk + jj] = p;
+      for (int j = lane; j < n; j += 32) {
+        const float p = expf(sc[gg * sh.ks + j] - mx);
+        sc[gg * sh.ks + j] = p;
         sum += p;
       }
 #pragma unroll
       for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        crow[r] = corr;
-        lrow[r] = lrow[r] * corr + sum;
-        mrow[r] = m_new;
-      }
+      if (lane == 0) ml[2 * gg] = mx, ml[2 * gg + 1] = sum;
     }
     __syncthreads();
-
-    // acc = acc * corr + P.V, a thread per head_dim lane
-    for (int d = tid; d < hd; d += kThreads) {
-      for (int r0 = 0; r0 < R; r0 += kRc) {
-        float pv[kRc];
+    // P.V: each lane its 8 columns, summed over the keys it visits
+    float acc[kMaxG][8];
 #pragma unroll
-        for (int rr = 0; rr < kRc; ++rr) pv[rr] = 0.0f;
-#pragma unroll 8
-        for (int jj = 0; jj < tk; ++jj) {
-          const float vv = vt[jj * ld + d];
+    for (int gg = 0; gg < kMaxG; ++gg)
 #pragma unroll
-          for (int rr = 0; rr < kRc; ++rr)
-            if (r0 + rr < R) pv[rr] = fmaf(sc[(r0 + rr) * tk + jj], vv, pv[rr]);
+      for (int i = 0; i < 8; ++i) acc[gg][i] = 0.0f;
+    for (int base = lo + warp * KW; base < hi; base += kBatch * kStep) {
+      RowBatch<FMT, HD> rb;
+      rb.load(v, ve, base + sub, kStep, hi - 1, pt, rows);
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int key = base + i * kStep + sub;
+        if (key >= hi) continue;
+        float x[8];
+        rb.values(x, i);
+#pragma unroll
+        for (int gg = 0; gg < kMaxG; ++gg) {
+          const float p = gg < ng ? sc[gg * sh.ks + key - lo] : 0.0f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[gg][j] = fmaf(p, x[j], acc[gg][j]);
         }
-#pragma unroll
-        for (int rr = 0; rr < kRc; ++rr)
-          if (r0 + rr < R) {
-            float* a = acc + (r0 + rr) * hd + d;
-            *a = *a * crow[r0 + rr] + pv[rr];
-          }
       }
     }
+#pragma unroll
+    for (int off = L; off < 32; off <<= 1)  // across the keys of a warp step
+#pragma unroll
+      for (int gg = 0; gg < kMaxG; ++gg)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[gg][i] += __shfl_xor_sync(0xffffffffu, acc[gg][i], off);
+    if (sub == 0)
+#pragma unroll
+      for (int gg = 0; gg < kMaxG; ++gg)
+        if (gg < ng)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) red[(warp * kMaxG + gg) * HD + pt * 8 + i] = acc[gg][i];
+    __syncthreads();
+    for (int i = tid; i < ng * HD; i += kThreads) {
+      const int gg = i / HD, d = i % HD;
+      float a = red[gg * HD + d];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) a += red[(w * kMaxG + gg) * HD + d];
+      slot[gg * kSlot + 2 + d] = a;
+    }
+    for (int gg = tid; gg < ng; gg += kThreads) slot[gg * kSlot] = ml[2 * gg], slot[gg * kSlot + 1] = ml[2 * gg + 1];
+    __syncthreads();  // sc, red and ml are free for the next row group
   }
-  __syncthreads();
 
-  if (sh.splits > 1) {  // this key run's (m, l, acc) for the combine
-    const size_t slot = (static_cast<size_t>(blockIdx.x) * gridDim.y + qi) * sh.splits + sp;
-    float* ml = part_ml + slot * R * 2;
-    float* pacc = part_acc + slot * R * hd;
-    for (int r = tid; r < R; r += kThreads) ml[2 * r] = mrow[r], ml[2 * r + 1] = lrow[r];
-    for (int i = tid; i < R * hd; i += kThreads) pacc[i] = acc[i];
-    return;
+  // the last block of the pair to arrive combines the partials in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counters + pair, 1) == nz - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float* pp = part + static_cast<size_t>(pair) * nz * sh.G * kSlot;
+  for (int i = tid; i < sh.G * HD; i += kThreads) {
+    const int gg = i / HD, d = i % HD;
+    float mx = kNegInf;
+    for (int zz = 0; zz < nz; ++zz) mx = fmaxf(mx, __ldcg(pp + (zz * sh.G + gg) * kSlot));
+    float l = 0.0f, a = 0.0f;
+    for (int zz = 0; zz < nz; ++zz) {
+      const float* s = pp + (zz * sh.G + gg) * kSlot;
+      const float w = expf(__ldcg(s) - mx);
+      l = fmaf(__ldcg(s + 1), w, l);
+      a = fmaf(__ldcg(s + 2 + d), w, a);
+    }
+    o[((static_cast<size_t>(b) * sh.Kh + kh) * sh.G + gg) * HD + d] = a / fmaxf(l, 1e-30f);
   }
-  for (int i = tid; i < R * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    const int s = qi * sh.bq + r / sh.G, g = r % sh.G;
-    o[((static_cast<size_t>(b) * sh.S + s) * sh.Kh + kh) * sh.G * hd + g * hd + d] = acc[i] / fmaxf(lrow[r], 1e-30f);
-  }
+  if (tid == 0) counters[pair] = 0;  // ready for the next call
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                     float* __restrict__ o, Shape sh) {
-  const int b = blockIdx.x / sh.Kh, kh = blockIdx.x % sh.Kh, qi = blockIdx.y;
-  const int R = sh.bq * sh.G, hd = sh.hd;
-  const size_t slot0 = (static_cast<size_t>(blockIdx.x) * gridDim.y + qi) * sh.splits;
-  for (int i = threadIdx.x; i < R * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    float mx = kNegInf;
-#pragma unroll 8
-    for (int sp = 0; sp < sh.splits; ++sp) mx = fmaxf(mx, part_ml[((slot0 + sp) * R + r) * 2]);
-    float l = 0.0f, a = 0.0f;
-#pragma unroll 8
-    for (int sp = 0; sp < sh.splits; ++sp) {
-      const float w = expf(part_ml[((slot0 + sp) * R + r) * 2] - mx);
-      l = fmaf(part_ml[((slot0 + sp) * R + r) * 2 + 1], w, l);
-      a = fmaf(part_acc[((slot0 + sp) * R + r) * hd + d], w, a);
+template <int FMT, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* ke, const void* ve,
+                   const void* q_start, const void* valid, const void* window, void* part, void* counters, void* o,
+                   int B, const Shape& sh, float scale, size_t smem, cudaStream_t stream) {
+  if constexpr (FMT == kMx && HD < 32) {
+    return cudaErrorInvalidValue;  // a kv_mx row must hold whole 16-byte chunks
+  } else {
+  const int8_t* kex = static_cast<const int8_t*>(ke);
+  const int8_t* vex = static_cast<const int8_t*>(ve);
+  const int* qs = static_cast<const int*>(q_start);
+  const int* vl = static_cast<const int*>(valid);
+  const int* win = static_cast<const int*>(window);
+  if (sh.S > 1) {
+    using P = Prefill<FMT, HD>;
+    static_assert(P::kSmem <= 232448, "shared memory over the 227 KB a block may have");
+    if (smem != P::kSmem) return cudaErrorInvalidValue;  // the wrapper's sizing disagrees
+    static bool configured = false;  // raise the dynamic shared-memory cap once
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(prefill_kernel<FMT, HD>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(P::kSmem));
+      if (err != cudaSuccess) return err;
+      configured = true;
     }
-    const int s = qi * sh.bq + r / sh.G, g = r % sh.G;
-    o[((static_cast<size_t>(b) * sh.S + s) * sh.Kh + kh) * sh.G * hd + g * hd + d] = a / fmaxf(l, 1e-30f);
+    prefill_kernel<FMT, HD><<<dim3(B * sh.Kh, (sh.S * sh.G + kRows - 1) / kRows), kThreads, P::kSmem, stream>>>(
+        static_cast<const float*>(q), k, v, kex, vex, qs, vl, win, static_cast<float*>(o), sh, scale);
+    return cudaGetLastError();
+  }
+  if (smem != decode_smem(HD, sh.ks) || smem > 48 * 1024) return cudaErrorInvalidValue;
+  decode_kernel<FMT, HD><<<dim3(B * sh.Kh, sh.splits), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), k, v, kex, vex, qs, vl, win, static_cast<float*>(part),
+      static_cast<int*>(counters), static_cast<float*>(o), sh, scale);
+  return cudaGetLastError();
   }
 }
 
 template <int FMT>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* ke, const void* ve,
-                   const void* q_start, const void* valid, const void* window, void* part_ml, void* part_acc,
-                   void* o, int B, const Shape& sh, float scale, cudaStream_t stream) {
-  static bool configured = false;  // raise the dynamic shared-memory cap once
-  if (!configured) {
-    cudaFuncAttributes attr;  // the 227 KB a block may have, less static shared memory
-    cudaError_t err = cudaFuncGetAttributes(&attr, flash_kernel<FMT>);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 232448 - static_cast<int>(attr.sharedSizeBytes));
-    if (err != cudaSuccess) return err;
-    configured = true;
+cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* ke, const void* ve,
+                      const void* q_start, const void* valid, const void* window, void* part, void* counters,
+                      void* o, int B, const Shape& sh, float scale, size_t smem, cudaStream_t s) {
+  switch (sh.hd) {
+    case 16: return launch<FMT, 16>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem, s);
+    case 32: return launch<FMT, 32>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem, s);
+    case 64: return launch<FMT, 64>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem, s);
+    case 128: return launch<FMT, 128>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem,
+                                      s);
+    default: return cudaErrorInvalidValue;
   }
-  const size_t R = static_cast<size_t>(sh.bq) * sh.G;
-  const size_t smem = sizeof(float) * (2 * R * sh.hd + R * sh.tk + 3 * R + 2 * static_cast<size_t>(sh.tk) * (sh.hd + 1));
-  flash_kernel<FMT><<<dim3(B * sh.Kh, sh.S / sh.bq, sh.splits), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), k, v, static_cast<const int8_t*>(ke), static_cast<const int8_t*>(ve),
-      static_cast<const int*>(q_start), static_cast<const int*>(valid), static_cast<const int*>(window),
-      static_cast<float*>(part_ml), static_cast<float*>(part_acc), static_cast<float*>(o), sh, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || sh.splits == 1) return err;
-  flash_combine_kernel<<<dim3(B * sh.Kh, sh.S / sh.bq), kThreads, 0, stream>>>(
-      static_cast<const float*>(part_ml), static_cast<const float*>(part_acc), static_cast<float*>(o), sh);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
+// smem: the wrapper's size of the dynamic shared memory (checked against
+// the kernel's own); part, counters: decode scratch (S == 1), else unused.
 extern "C" int flash_attend_launch(int fmt, const void* q, const void* k, const void* v, const void* ke,
                                    const void* ve, const void* q_start, const void* valid, const void* window,
-                                   void* part_ml, void* part_acc, void* o, int B, int S, int T, int Kh, int G,
-                                   int hd, int bq, int tk, int splits, float scale, void* stream) {
-  const Shape sh{S, T, Kh, G, hd, bq, tk, splits};
+                                   void* part, void* counters, void* o, int B, int S, int T, int Kh, int G, int hd,
+                                   int splits, int ks, float scale, long long smem, void* stream) {
+  const Shape sh{S, T, Kh, G, hd, splits, ks};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = static_cast<size_t>(smem);
   cudaError_t err;
   if (fmt == kBf16)
-    err = launch<kBf16>(q, k, v, ke, ve, q_start, valid, window, part_ml, part_acc, o, B, sh, scale, s);
+    err = launch_hd<kBf16>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, sm, s);
   else if (fmt == kInt8)
-    err = launch<kInt8>(q, k, v, ke, ve, q_start, valid, window, part_ml, part_acc, o, B, sh, scale, s);
+    err = launch_hd<kInt8>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, sm, s);
   else if (fmt == kMx)
-    err = launch<kMx>(q, k, v, ke, ve, q_start, valid, window, part_ml, part_acc, o, B, sh, scale, s);
+    err = launch_hd<kMx>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, sm, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

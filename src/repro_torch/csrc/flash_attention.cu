@@ -2,211 +2,199 @@
 // and values, float32 or bf16, for Hopper (sm_90a).  Replaces the TPU kernel
 // repro/kernels/flash_attention.py::flash_attention (_kernel).  The wrapper,
 // the plain PyTorch version and the design notes are in
-// src/repro_torch/kernels/flash_attention.py.
+// src/repro_torch/kernels/flash_attention.py; the tile loop and the split
+// arithmetic in flash_mma.cuh.
 //
-// Grid (BH, ceil(S / kBq)), 128 threads.  A block owns kBq = 32 query rows
-// of one (batch, head); thread t holds rows 4 * (t / 16) .. + 3 and, per key
-// tile, the keys (t % 16) + 16 c (c < 4) of its scores, then the head_dim
-// lanes (t % 16) + 16 j of its accumulator -- scores, running (m, l) and the
-// (4 rows x hd / 16) accumulator live in registers.  Per key tile of kBk = 64
-// keys the block widens K and V to float32 in shared memory (16-byte loads),
-// masks k <= q (causal, both counted from 0: top-left aligned) with -1e30 like
-// the reference, and folds the tile in:
-//   m' = max(m, max_j s), p = e^(s - m'), c = e^(m - m'),
-//   l' = l c + sum_j p,   acc' = acc c + p.V,
-// then writes acc / max(l, 1e-30) in the input's type.  Causal key tiles that
-// lie wholly above the block's last row are skipped: tile 0 always holds key 0,
-// live for every row, so m is finite after it and a fully masked tile would add
-// e^(-1e30 - m) = 0 with a correction of 1.  Keys past T (a ragged last tile)
-// mask the same way, with zeroed K and V rows.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Grid (BH, ceil(S / kRows)).  A block of kWarps warps owns kRows = 16 kWarps
+// query rows of one (batch, head), each warp 16 of them.  q * scale (float32,
+// as the plain version scales before the dot) goes into shared memory as
+// three bf16 planes (hi + mid + lo: exact).  Key tiles of BK keys are
+// double-buffered: cp.async brings tile i + 1 while the warps work on tile i.
+//   bf16: K and V are exact bf16 and are copied straight into the planes the
+//         tensor cores read; 8 warps (128 rows) over 64-key tiles.
+//   float32: K and V are not exact in bf16; each tile lands as float32 and is
+//         split into three planes (all term pairs down to 2^-16 of the
+//         leading product); 4 warps over 32-key tiles, for room.
+// p goes in as three bf16 terms.
+// Scores and the accumulator live in mma fragments; keys k <= q (causal, both
+// counted from 0: top-left aligned) and k < T are live, others -1e30 as in
+// the reference; the output is acc / max(l, 1e-30) in the input's type.
+// Causal key tiles wholly above a warp's last row are skipped: tile 0 always
+// holds key 0, live for every row, so m is finite after it and such a tile
+// would add e^(-1e30 - m) = 0 with a correction of 1.  Keys past T (a ragged
+// last tile) are zero-filled and masked.
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBq = 32;    // query rows per block
-constexpr int kBk = 64;    // keys per tile
-constexpr int kRows = 4;   // query rows per thread
-constexpr int kLanes = 16; // threads sharing a row group (a half warp)
-constexpr int kKeys = kBk / kLanes;
-constexpr float kNegInf = -1e30f;
+using flash::Ld;
+using flash::RowState;
+using flash::kWarpRows;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void narrow(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16_rn(x); }
+template <typename T, int HD, int WARPS, int BK>
+struct Cfg {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kThreads = 32 * WARPS, kRows = kWarpRows * WARPS, kLd = Ld<HD>::value;
+  static constexpr int kNkv = kF32 ? 3 : 1;  // bf16 planes of K and of V
+  static constexpr int kQPlane = kRows * kLd, kKvPlane = BK * kLd;
+  // shared memory, in bf16 elements: Q planes, then
+  //   bf16:    [2 stages][K, V][BK][kLd] (the cp.async targets)
+  //   float32: [3 K planes][3 V planes], then float32 [2 stages][K, V][BK][HD]
+  static constexpr size_t kQElems = 3 * static_cast<size_t>(kQPlane);
+  static constexpr size_t kKvElems = (kF32 ? 6 : 4) * static_cast<size_t>(kKvPlane);
+  static constexpr size_t kRawBytes = kF32 ? 2 * 2 * static_cast<size_t>(BK) * HD * 4 : 0;
+  static constexpr size_t kSmem = 2 * (kQElems + kKvElems) + kRawBytes;
+};
 
-// Rows [r0, r0 + n) of a (rows, HD) slab into dst[n][HD + 1] as float32 times
-// `scale` (1 for K and V: exact); rows past `rows` are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0, int n, int rows, float scale) {
-  constexpr int kPer = 16 / sizeof(T);  // values per 16-byte load
-  constexpr int kChunks = HD / kPer;
-  constexpr int kLd = HD + 1;
-  for (int c = threadIdx.x; c < n * kChunks; c += kThreads) {
-    const int rr = c / kChunks, part = c % kChunks, r = r0 + rr;
-    float* o = dst + rr * kLd + part * kPer;
-    if (r >= rows) {
+template <typename T>
+__device__ __forceinline__ void load8(float (&x)[8], const T* p);
+template <>
+__device__ __forceinline__ void load8<float>(float (&x)[8], const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+template <>
+__device__ __forceinline__ void load8<__nv_bfloat16>(float (&x)[8], const __nv_bfloat16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) o[i] = 0.0f;
-      continue;
-    }
-    const uint4 val = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * HD) + part);
-    const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) o[i] = widen(e[i]) * scale;
-  }
+  for (int i = 0; i < 4; ++i) x[2 * i] = __low2float(h[i]), x[2 * i + 1] = __high2float(h[i]);
 }
 
-// Sum or max over the 16 lanes of a row group; every lane gets the same bits
-// (each butterfly step adds or compares the same two operands on both lanes).
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = kLanes / 2; off; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = kLanes / 2; off; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(kBq + 2 * kBk) * (HD + 1) + kBq * (kBk + 1));
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int HD, int WARPS, int BK>
+__global__ void __launch_bounds__(Cfg<T, HD, WARPS, BK>::kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
                        int S, int Tk, int causal, float scale) {
-  constexpr int kLd = HD + 1;
-  constexpr int kDims = HD / kLanes;  // accumulator lanes per thread
-  constexpr int kPld = kBk + 1;
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;               // [kBq][kLd] scaled queries
-  float* kt = qs + kBq * kLd;   // [kBk][kLd] keys of the tile
-  float* vt = kt + kBk * kLd;   // [kBk][kLd] values of the tile
-  float* ps = vt + kBk * kLd;   // [kBq][kPld] probabilities of the tile
+  using C = Cfg<T, HD, WARPS, BK>;
+  constexpr int kLd = C::kLd, kChunks = HD * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* kvs = qs + C::kQElems;  // bf16: stages; float32: the six split planes
+  float* raw = reinterpret_cast<float*>(kvs + C::kKvElems);
 
   const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBq;
-  const int lane = threadIdx.x % kLanes, r0 = (threadIdx.x / kLanes) * kRows;
+  const int q0 = blockIdx.y * C::kRows, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const T* kb = k + bh * Tk * HD;
   const T* vb = v + bh * Tk * HD;
-  load_rows<T, HD>(qs, q + bh * S * HD, q0, kBq, S, scale);
+  const int k_end = causal ? min(Tk, q0 + C::kRows) : Tk;  // causal: later keys mask every row
+  const int n_tiles = (k_end + BK - 1) / BK;
 
-  float m[kRows], l[kRows], acc[kRows][kDims];
+  // tile `tile` of K and V -> stage `st` (keys past T zero-filled)
+  auto issue = [&](int tile, int st) {
+    const int j0 = tile * BK;
+    for (int c = tid; c < 2 * BK * kChunks; c += C::kThreads) {
+      const int which = c / (BK * kChunks), jj = (c / kChunks) % BK, part = c % kChunks, j = j0 + jj;
+      const T* src = (which ? vb : kb) + static_cast<size_t>(min(j, Tk - 1)) * HD + part * (16 / sizeof(T));
+      void* dst;
+      if constexpr (C::kF32)
+        dst = raw + ((st * 2 + which) * BK + jj) * HD + part * 4;
+      else
+        dst = kvs + ((st * 2 + which) * BK + jj) * kLd + part * 8;
+      flash::cp_async16(dst, src, j < Tk);
+    }
+  };
+  if (n_tiles > 0) issue(0, 0);
+  flash::cp_async_commit();
+
+  // q * scale -> three bf16 planes; rows past S are zero
+  for (int c = tid; c < C::kRows * (HD / 8); c += C::kThreads) {
+    const int r = c / (HD / 8), d = (c % (HD / 8)) * 8;
+    float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (q0 + r < S) {
+      load8(x, q + (bh * S + q0 + r) * HD + d);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf, l[r] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kDims; ++j) acc[r][j] = 0.0f;
+      for (int i = 0; i < 8; ++i) x[i] = x[i] * scale;
+    }
+    flash::store_split8<3>(qs + r * kLd + d, C::kQPlane, x);
   }
 
-  const int k_end = causal ? min(Tk, q0 + kBq) : Tk;  // causal: later tiles mask every row
-  for (int j0 = 0; j0 < k_end; j0 += kBk) {
-    __syncthreads();  // the previous tile is done with kt, vt and ps
-    load_rows<T, HD>(kt, kb, j0, kBk, Tk, 1.0f);
-    load_rows<T, HD>(vt, vb, j0, kBk, Tk, 1.0f);
-    __syncthreads();
-
-    float s[kRows][kKeys];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kKeys; ++c) s[r][c] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[kRows], kv[kKeys];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) qv[r] = qs[(r0 + r) * kLd + d];
-#pragma unroll
-      for (int c = 0; c < kKeys; ++c) kv[c] = kt[(lane + kLanes * c) * kLd + d];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int c = 0; c < kKeys; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qp = q0 + r0 + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kKeys; ++c) {
-        const int kp = j0 + lane + kLanes * c;
-        if (kp >= Tk || (causal && kp > qp)) s[r][c] = kNegInf;
-        mx = fmaxf(mx, s[r][c]);
+  const int w0 = q0 + warp * kWarpRows;  // the warp's first row
+  const int g = lane >> 2;
+  const int w_end = causal ? min(k_end, w0 + kWarpRows) : k_end;  // the warp's live keys end here
+  RowState<HD> st;
+  st.init();
+  for (int it = 0; it < n_tiles; ++it) {
+    __syncthreads();  // every warp is done with the stage (and planes) about to be refilled
+    if (it + 1 < n_tiles) issue(it + 1, (it + 1) & 1);
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();
+    __syncthreads();  // tile `it` has landed for every thread
+    const __nv_bfloat16* kp;
+    const __nv_bfloat16* vp;
+    if constexpr (C::kF32) {  // float32 tile -> three bf16 planes each of K and V
+      const float* src = raw + (it & 1) * 2 * BK * HD;
+      for (int c = tid; c < 2 * BK * (HD / 8); c += C::kThreads) {
+        const int which = c / (BK * (HD / 8)), jj = (c / (HD / 8)) % BK, d = (c % (HD / 8)) * 8;
+        float x[8];
+        load8(x, src + (which * BK + jj) * HD + d);
+        flash::store_split8<3>(kvs + which * 3 * C::kKvPlane + jj * kLd + d, C::kKvPlane, x);
       }
-      const float m_new = fmaxf(m[r], group_max(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kKeys; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        ps[(r0 + r) * kPld + lane + kLanes * c] = p;
-        sum += p;
-      }
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + group_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDims; ++j) acc[r][j] *= corr;
+      __syncthreads();
+      kp = kvs;
+      vp = kvs + 3 * C::kKvPlane;
+    } else {
+      kp = kvs + (it & 1) * 2 * C::kKvPlane;
+      vp = kp + C::kKvPlane;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int jj = 0; jj < kBk; ++jj) {
-      float pv[kRows], vv[kDims];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) pv[r] = ps[(r0 + r) * kPld + jj];
-#pragma unroll
-      for (int j = 0; j < kDims; ++j) vv[j] = vt[jj * kLd + lane + kLanes * j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int j = 0; j < kDims; ++j) acc[r][j] = fmaf(pv[r], vv[j], acc[r][j]);
+    const int j0 = it * BK;
+    if (w0 < S && j0 < w_end) {  // warp-uniform
+      auto live = [&](int h, int jj) {
+        const int key = j0 + jj;
+        return key < Tk && (!causal || key <= w0 + g + 8 * h);
+      };
+      flash::tile_step<HD, BK, 3, C::kNkv, 3, C::kNkv>(st, qs + warp * kWarpRows * kLd, C::kQPlane, kp, vp,
+                                                           C::kKvPlane, live);
     }
   }
+  flash::cp_async_wait<0>();
 
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + r0 + r;
-    if (row >= S) continue;
-    T* out = o + (bh * S + row) * HD;
-    const float den = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < kDims; ++j) narrow(out + lane + kLanes * j, acc[r][j] / den);
+  if (w0 < S) {
+    T* ob = o + bh * S * HD;
+    st.finish([&](int h, int col, float a, float b) {
+      const int row = w0 + g + 8 * h;
+      if (row < S) store2(ob + static_cast<size_t>(row) * HD + col, a, b);
+    });
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int WARPS, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int S, int Tk, int causal,
                    float scale, cudaStream_t stream) {
+  using C = Cfg<T, HD, WARPS, BK>;
+  static_assert(C::kSmem <= 232448, "shared memory over the 227 KB a block may have");
   static bool configured = false;  // raise the dynamic shared-memory cap once
-  constexpr size_t smem = smem_bytes<HD>();
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD, WARPS, BK>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(C::kSmem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  flash_attention_kernel<T, HD><<<dim3(BH, (S + kBq - 1) / kBq), kThreads, smem, stream>>>(
+  flash_attention_kernel<T, HD, WARPS, BK><<<dim3(BH, (S + C::kRows - 1) / C::kRows), C::kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), S, Tk,
       causal, scale);
   return cudaGetLastError();
 }
 
+// bf16: 8 warps (128 rows) a block over 64-key tiles; float32 (three K and V
+// planes and a float32 staging tile): 4 warps over 32-key tiles.
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, void* o, int BH, int S, int Tk,
                       int causal, float scale, cudaStream_t stream) {
+  constexpr bool f32 = sizeof(T) == 4;
+  constexpr int W = f32 ? 4 : 8, BK = f32 ? 32 : 64;
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, BH, S, Tk, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, BH, S, Tk, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, BH, S, Tk, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, BH, S, Tk, causal, scale, stream);
+    case 16: return launch<T, 16, W, BK>(q, k, v, o, BH, S, Tk, causal, scale, stream);
+    case 32: return launch<T, 32, W, BK>(q, k, v, o, BH, S, Tk, causal, scale, stream);
+    case 64: return launch<T, 64, W, BK>(q, k, v, o, BH, S, Tk, causal, scale, stream);
+    case 128: return launch<T, 128, W, BK>(q, k, v, o, BH, S, Tk, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -226,3 +214,4 @@ extern "C" int flash_attention_launch(int dtype, int hd, const void* q, const vo
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
+

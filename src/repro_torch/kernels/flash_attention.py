@@ -11,15 +11,27 @@ live for query s iff k <= s, both counted from 0 (top-left aligned when
 S != T), and masked scores are -1e30, not -inf.  The output is
 ``acc / max(l, 1e-30)`` in q's dtype.
 
-What bounds it on the H100.  A call reads q, k, v and writes the output
-once; its float32 work is 4 * hd multiply-adds per live (query, key) pair.
-At the widths it is used at (hd 128, S = T = 1024) that is ~34 GFLOP for
-128 (batch, head) rows under the causal mask against 67 MB of traffic, so
-it is bound by float32 arithmetic (~0.5 ms), not by bytes.  The kernel is
-the simple design: a block of 128 threads per 32 query rows, K and V tiles
-widened to float32 in shared memory, scores and the accumulator in
-registers (4 rows a thread), no tensor cores; causal key tiles past the
-block's last row are skipped (exact, see the source).
+What bounds it on the H100, and the design.  A call reads q, k, v and
+writes the output once; its work is 4 * hd operations per live (query,
+key) pair.  At the widths it is used at (hd 128, S = T = 1024, 128
+(batch, head) rows) that is 34 GFLOP under the causal mask against 134 MB
+of bf16 traffic: 0.035 ms on the bf16 tensor cores, under the 0.040 ms the
+bytes take, so the least time is the bytes'.  The kernel runs the tile
+loop of ``csrc/flash_mma.cuh`` on the tensor cores (``mma.sync`` m16n8k16,
+bf16 in, float32 sums): a block of 8 warps owns 128 query rows (16 a
+warp), key tiles of 64 are double-buffered in shared memory by
+``cp.async``, scores and the accumulator live in register fragments, and
+p passes from the score fragments to the P.V fragments in registers.  The
+tolerances of the plain version (2e-5 in float32; in bf16, one bf16 ulp
+per element) hold through split operands: q * scale and p go in as three
+bf16 terms each (hi + mid + lo hold a float32 exactly; two terms of p,
+2^-17, left near-zero bf16 outputs 5 ulps off on the card), bf16 k and v
+are exact, and the tensor cores' truncating sums are kept short (see
+``csrc/flash_mma.cuh``).  Float32 inputs (the reference's test shapes)
+split k and v into three terms too and take the term products down to
+2^-16 of the leading one, with 4 warps and 32-key tiles (the split planes
+take the room).  Causal key tiles past a warp's last row are skipped
+(exact, see the source).
 """
 from __future__ import annotations
 
@@ -33,6 +45,18 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def smem_bytes(dtype, hd: int) -> int:
+    """Dynamic shared memory of a block (``Cfg::kSmem`` in the source):
+    three bf16 Q planes, then bf16 (8 warps, 128 rows, 64-key tiles): two
+    stages of K and V planes; float32 (4 warps, 64 rows, 32-key tiles):
+    three K and three V planes and two float32 stages of K and V.  Planes
+    are rows of hd + 8 bf16."""
+    plane = 2 * (hd + 8)
+    if dtype == torch.float32:
+        return 3 * 64 * plane + 6 * 32 * plane + 2 * 2 * 32 * hd * 4
+    return 3 * 128 * plane + 2 * 2 * 64 * plane
 
 
 def _blocks(q, k, block_q: int, block_k: int):

@@ -1,10 +1,11 @@
 """Flash attention over the packed KV cache: one CUDA kernel
-(``csrc/flash_attend.cu``), its plain PyTorch version, and the wrapper.
+(``csrc/flash_attend.cu``, its tensor-core tile loop in
+``csrc/flash_mma.cuh``), its plain PyTorch version, and the wrapper.
 
 Replaces the TPU kernel ``repro/kernels/flash_prefill.py::flash_attend``
 (body ``_kernel``, tile dequant ``_dequant_tile``).  A (B, S, Kh, G, hd)
 query block attends to a packed (B, T, Kh, ...) cache with online softmax;
-the G heads of a KV group ride as bq*G rows; row s of batch b sits at
+the G heads of a KV group ride as S*G rows; row s of batch b sits at
 absolute position q_start[b] + s (contiguous rows), and key k is live iff
 
     k < valid[b],  k <= q_pos,  q_pos - k < window  (2**30 = global).
@@ -16,24 +17,44 @@ The cache stays packed in device memory and is dequantized per tile:
   * kv_mx:   nibble pairs along head_dim (low nibble = even channel),
              sign-extended, times 2**e, one exponent per 32-token block.
 
-Every product q * 2**e is exact in float32, so dequantizing changes no bit.
+Every dequantized value has at most 8 significant bits and is a normal
+number, so it is exact in float32 and in bf16 alike.
 
-What bounds it on the H100.  At decode (S == 1) each step reads the live
-part of the layer's cache once against a few FLOPs per byte: the bound is
-cache bytes at 3.35 TB/s.  There are only B * Kh (batch row, kv head)
-pairs, too few blocks to keep the card busy, so the kernel splits the key
-axis (flash decoding): one block per pair and run of ``_SPLIT_KEYS`` keys
-writes its softmax (max, sum, unnormalized P.V) and a second launch
-combines the runs.  For a prefill chunk (S > 1) there are B * Kh * S / bq
-blocks already, and a split would need partial sums of B*Kh*S*T/tk rows
-(~134 MB per layer call at S = 256, T = 1024), so each block loops over the
-key tiles itself with a running (m, l, acc), as the TPU kernel does, and
-writes the output directly.  Tiles wholly past ``valid[b]``, after the
-block's last query or before its first query's window are skipped: they
-would add exact zeros.  A chunk attends over ~S * T / 2 scores per head,
-so its bound is float32 arithmetic (the kernel does not use tensor cores).
-Sums run in another order than the reference's 128-key tiles, within the
-reference's 5e-5.
+What bounds it on the H100, and the design.  A prefill chunk (S > 1)
+attends over ~S * T / 2 scores a head: 4 * hd operations per live (query,
+key) pair against the bytes of q, the output and the live cache.  At
+S = 256 over T = 1024 that is 2.7 GFLOP against ~10 MB: on the bf16
+tensor cores (989 TFLOP/s) the two take about the same least time, ~0.003
+ms, where float32 arithmetic (67 TFLOP/s) would take 0.04 ms.  Blocks of
+64 rows (4 warps, 16 rows each) take fixed row tiles of the S*G rows (a
+ragged last tile masks itself; the plain version keeps the reference's
+``pick_q_block``), walk key tiles of 64 double-buffered in shared memory
+by ``cp.async`` and dequantized to bf16 there, and multiply with
+``mma.sync`` m16n8k16 (bf16 in, float32 sums): scores and the output
+accumulator live in register fragments, the online softmax reduces across
+the four lanes of a row with shuffles, and p goes from the score
+fragments into the P.V fragments without touching shared memory.  The
+float32 tolerance (5e-5) holds through split operands: q * hd**-0.5 goes
+in as three bf16 terms, which hold it exactly, so Q.K^T differs from the
+plain version only in the order of its sums; p goes in as three bf16
+terms too (two would leave 2^-17 of p, which at the |v| of 8-16 that real
+caches reach comes within a factor of two of the tolerance), and the
+tensor cores' truncating sums are kept short (see ``csrc/flash_mma.cuh``).
+``tests/test_torch_flash_split.py`` emulates this arithmetic on the CPU.
+Tiles wholly past ``valid[b]``, after the block's (or the warp's) last
+query or before its first query's window are skipped: they would add
+exact zeros.
+
+At decode (S == 1) a pair (batch row, kv head) has only G rows, too few for
+a tensor-core tile, and the bound is the live cache bytes at 3.35 TB/s.
+The key axis is split so that pairs x splits is about two blocks an SM
+(``decode_split``), each split a multiple of 32 keys; each block reads its
+rows straight into registers (HD / 8 lanes a row, 8 values a lane) on the
+CUDA cores and writes its (max, sum, unnormalized P.V).  The last block of
+a pair to finish (an arrival counter in device memory, which it resets)
+combines the pair's partials in split order, in the same launch.  The
+wrapper allocates the partials and keeps the zeroed counters; one decode
+call is one CUDA launch.
 """
 from __future__ import annotations
 
@@ -50,8 +71,13 @@ from repro_torch.models.kv_cache import MX_KV_BLOCK, unpack_i4
 NEG_INF = -1e30
 FORMATS = ("kv_bf16", "kv_int8", "kv_mx")
 _FMT_IDS = {"kv_bf16": 0, "kv_int8": 1, "kv_mx": 2}
-_MAX_SMEM = 232_448
-_SPLIT_KEYS = 32  # keys per tile (a multiple of MX_KV_BLOCK)
+_MAX_SMEM = 232_448  # dynamic shared memory a block may have (227 KB)
+_DECODE_MAX_SMEM = 48 * 1024  # the decode kernel runs without raising the cap
+HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instances
+ROW_TILE = 64  # prefill rows a block: 4 warps of 16 (the mma M)
+KEY_TILE = 64  # prefill keys a tile
+_MAX_G = 8  # decode rows a block holds in registers at a time
+_DECODE_MAX_KEYS = 512  # keys of one decode split, at most
 
 
 def _check_fmt(fmt: str) -> None:
@@ -128,16 +154,71 @@ def flash_attend_ref(q, k, v, ke, ve, q_start, valid, window, *, fmt: str,
 @functools.cache
 def _lib():
     fn = _build.load("flash_attend").flash_attend_launch
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(rows: int, hd: int, tk: int) -> int:
-    """Dynamic shared memory of one block: float32 queries, scores,
-    accumulator, running (m, l, corr) and the dequantized K and V tiles
-    (rows padded by one word)."""
-    return 4 * (2 * rows * hd + rows * tk + 3 * rows + 2 * tk * (hd + 1))
+def prefill_smem_bytes(fmt: str, hd: int) -> int:
+    """Dynamic shared memory of a prefill block (``Prefill::kSmem`` in the
+    source): three bf16 Q planes of 64 rows, then for kv_bf16 two stages of
+    K and V planes, for the packed formats one K and one V plane, two stages
+    of packed K and V rows and their exponents.  Planes are rows of hd + 8
+    bf16 (the pad keeps ldmatrix off bank conflicts)."""
+    plane = 2 * (hd + 8)  # bytes of one plane row
+    q = 3 * ROW_TILE * plane
+    if fmt == "kv_bf16":
+        return q + 2 * 2 * KEY_TILE * plane
+    row = hd if fmt == "kv_int8" else hd // 2
+    return q + 2 * KEY_TILE * plane + 2 * 2 * KEY_TILE * row + 2 * 2 * KEY_TILE
+
+
+def decode_smem_bytes(hd: int, keys: int) -> int:
+    """Dynamic shared memory of a decode block (``decode_smem``): float32
+    scores of up to 8 rows, the 4 warps' partial P.V rows, (max, sum)."""
+    return 4 * (_MAX_G * keys + 4 * _MAX_G * hd + 2 * _MAX_G)
+
+
+def row_blocks(s: int, g: int) -> int:
+    """Prefill blocks a (batch row, kv head): fixed tiles of 64 of the S*G
+    rows, the last one ragged."""
+    return -(-s * g // ROW_TILE)
+
+
+def decode_split(pairs: int, t: int, sms: int = 132):
+    """(splits, keys a split) of a decode call: pairs x splits about two
+    blocks an SM, keys a multiple of 32 (whole kv_mx blocks), at most 512."""
+    want = max(1, round(2 * sms / pairs))
+    keys = -(-t // want)
+    keys = min(max(MX_KV_BLOCK, -(-keys // MX_KV_BLOCK) * MX_KV_BLOCK), _DECODE_MAX_KEYS)
+    return -(-t // keys), keys
+
+
+def launch_plan(fmt: str, b: int, s: int, t: int, kh: int, g: int, hd: int, sms: int = 132) -> dict:
+    """Grid, shared memory and decode partials (floats: one (m, l, P.V)
+    row per split and query row) of one call, as the kernel sizes them."""
+    if s > 1:
+        return dict(grid=(b * kh, row_blocks(s, g), 1), smem=prefill_smem_bytes(fmt, hd), splits=1, keys=KEY_TILE,
+                    part_floats=0, smem_cap=_MAX_SMEM)
+    splits, keys = decode_split(b * kh, t, sms)
+    return dict(grid=(b * kh, splits, 1), smem=decode_smem_bytes(hd, keys), splits=splits, keys=keys,
+                part_floats=b * kh * splits * g * (hd + 2), smem_cap=_DECODE_MAX_SMEM)
+
+
+_COUNTERS = {}  # (device, stream) -> zeroed int32 arrival counters, reset by the kernel after use
+
+
+def _counters(dev, stream: int, n: int) -> torch.Tensor:
+    c = _COUNTERS.get((dev, stream))
+    if c is None or c.numel() < n:
+        c = _COUNTERS[(dev, stream)] = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+    return c
+
+
+@functools.cache
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _mode(fmt: str, s: int) -> str:
@@ -157,8 +238,9 @@ def _check_cache(fmt, k, v, ke, ve, b, t, kh, hd):
                 ("ke", ke, torch.int8, (b, t // MX_KV_BLOCK, kh, 1)),
                 ("ve", ve, torch.int8, (b, t // MX_KV_BLOCK, kh, 1))]
         align = 32
-    if hd % align:
-        raise ValueError(f"{fmt} needs head_dim % {align} == 0 for 16-byte cache-row loads, got {hd}")
+    if hd % align or hd not in HEAD_DIMS:
+        raise ValueError(f"{fmt} needs head_dim in {HEAD_DIMS} and % {align} == 0 for 16-byte cache-row loads, "
+                         f"got {hd}")
     for name, c, dtype, shape in want:
         if c is None or c.dtype != dtype or tuple(c.shape) != shape:
             got = None if c is None else (c.dtype, tuple(c.shape))
@@ -182,12 +264,9 @@ def flash_attend(q, k, v, ke, ve, q_start, valid, window, *, fmt: str,
     for name, c, n in (("q_start", q_start, b), ("valid", valid, b), ("window", window, 1)):
         if c.dtype != torch.int32 or c.numel() != n:
             raise ValueError(f"{name} must hold {n} int32")
-    bq = pick_q_block(s, g, block_q)
-    tk = pick_kv_block(t, fmt, _SPLIT_KEYS)
-    rows = bq * g
-    smem = smem_bytes(rows, hd, tk)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{rows} query rows need {smem} bytes of shared memory (max {_MAX_SMEM})")
+    plan = launch_plan(fmt, b, s, t, kh, g, hd, _sm_count(q.device))
+    if plan["smem"] > plan["smem_cap"]:
+        raise ValueError(f"{fmt} head_dim {hd} needs {plan['smem']} bytes of shared memory (max {plan['smem_cap']})")
     for c in [q, *cache, q_start, valid, window]:
         if not c.is_cuda or c.device != q.device:
             raise ValueError("all operands must lie on the same CUDA device")
@@ -197,19 +276,17 @@ def flash_attend(q, k, v, ke, ve, q_start, valid, window, *, fmt: str,
         if c.data_ptr() % 16:
             raise ValueError("q, k and v must be 16-byte aligned")
     out = torch.empty((b, s, kh, g, hd), dtype=torch.float32, device=q.device)
-    splits = t // tk if s == 1 else 1  # split the keys over blocks at decode only
-    part_ml = part_acc = None
-    if splits > 1:
-        runs = b * kh * (s // bq) * splits * rows  # one (m, l, P.V) per row and key run
-        part_ml = torch.empty((runs, 2), dtype=torch.float32, device=q.device)
-        part_acc = torch.empty((runs, hd), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = counters = None
+    if s == 1:  # the splits' (m, l, P.V) rows and the pairs' arrival counters
+        part = torch.empty(plan["part_floats"], dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, stream, b * kh)
     ptr = lambda c: 0 if c is None else c.data_ptr()  # noqa: E731
     err = _lib()(
         _FMT_IDS[fmt], q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ke), ptr(ve),
-        q_start.data_ptr(), valid.data_ptr(), window.data_ptr(), ptr(part_ml), ptr(part_acc),
-        out.data_ptr(), b, s, t, kh, g, hd, bq, tk, splits,
-        float(torch.tensor(hd**-0.5, dtype=torch.float32)),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q_start.data_ptr(), valid.data_ptr(), window.data_ptr(), ptr(part), ptr(counters),
+        out.data_ptr(), b, s, t, kh, g, hd, plan["splits"], plan["keys"],
+        float(torch.tensor(hd**-0.5, dtype=torch.float32)), plan["smem"], stream,
     )
     _build.check(err, "flash_attend")
     flash_attend.launches += 1

@@ -15,7 +15,9 @@ import torch
 
 from repro.kernels.flash_prefill import flash_attend as jflash
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.flash_prefill import flash_attend, pick_kv_block, pick_q_block
+from repro_torch.kernels.flash_prefill import (
+    KEY_TILE, ROW_TILE, decode_split, flash_attend, launch_plan, pick_kv_block, pick_q_block, row_blocks,
+)
 from repro_torch.models.attention import _attend_dense, _mask_bias
 
 
@@ -135,3 +137,52 @@ def test_block_pickers_match_reference():
     for t in (32, 96, 1024, 2048):
         for want in (32, 128):
             assert pick_kv_block(t, "kv_mx", want) == jkv(t, "kv_mx", want)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's sizing (the kernel itself runs only on the card)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("fmt", ["kv_bf16", "kv_int8", "kv_mx"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_kernel_sizing_fits_a_block(fmt, hd, g):
+    """Shared memory of a prefill and a decode block within what a block
+    may have; decode partials are one (m, l, P.V) row per split and row."""
+    for b, s, t, kh in ((4, 1, 1024, 8), (1, 256, 1024, 8), (4, 1, 256, 8), (1, 900, 1024, 8), (16, 1, 4096, 8)):
+        plan = launch_plan(fmt, b, s, t, kh, g, hd)
+        assert plan["smem"] <= plan["smem_cap"] <= 232_448, (s, t, plan)
+        if s == 1:
+            assert plan["part_floats"] == b * kh * plan["splits"] * g * (hd + 2)
+            assert plan["keys"] % 32 == 0  # whole kv_mx blocks a split
+        else:
+            assert plan["part_floats"] == 0 and plan["keys"] == KEY_TILE
+
+
+@pytest.mark.parametrize("s", [2, 13, 31, 60, 132, 188, 255, 256])
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+def test_row_tiles_cover_ragged_chunks(s, g):
+    """Fixed 64-row tiles over the S*G rows: no row lost or repeated, the
+    last tile ragged -- where ``pick_q_block`` collapses a prime S to one
+    query a block."""
+    n = row_blocks(s, g)
+    rows = [r for blk in range(n) for r in range(blk * ROW_TILE, min((blk + 1) * ROW_TILE, s * g))]
+    assert rows == list(range(s * g))
+    assert (n - 1) * ROW_TILE < s * g <= n * ROW_TILE
+    assert launch_plan("kv_int8", 2, s, 1024, 8, g, 128)["grid"] == (16, n, 1)
+    if s == 31 and g > 1:
+        assert pick_q_block(s, g) == 1  # the TPU's divisor rule: one query a block
+
+
+@pytest.mark.parametrize("b,kh,t", [(4, 8, 1024), (4, 8, 256), (1, 8, 1024), (1, 8, 32), (2, 2, 64),
+                                    (64, 8, 1024), (16, 8, 8192), (3, 5, 96)])
+def test_decode_split_fills_the_card(b, kh, t):
+    """Pairs x splits near two blocks an SM (or 32 keys a split when T is
+    too short for that), every split a multiple of 32 keys, no key lost."""
+    splits, keys = decode_split(b * kh, t, 132)
+    assert keys % 32 == 0 and 32 <= keys <= 512
+    assert (splits - 1) * keys < t <= splits * keys
+    blocks = b * kh * splits
+    assert blocks >= 0.75 * 2 * 132 or keys == 32, (splits, keys)
+    assert blocks <= 2 * 2 * 132 or keys == 512 or splits == 1, (splits, keys)
+    if (b, kh, t) == (4, 8, 1024):
+        assert (splits, keys) == (8, 128)  # the staged decode tick: 256 blocks

@@ -13,7 +13,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jflash_attention
 from repro.kernels.flash_attention import flash_attention_ref as jflash_attention_ref
 from repro_torch.kernels import flash_attention, flash_attention_ref
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_plain, smem_bytes
 
 CASES = [  # the reference's (bh, s, t, hd, bq, bk)
     (4, 64, 64, 32, 32, 32),
@@ -96,3 +96,11 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     out = flash_attention(q, k, v)
     assert flash_attention.launches == before
     torch.testing.assert_close(out, flash_attention_plain(q, k, v), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_kernel_smem_fits_a_block(dtype, hd):
+    """The kernel's shared memory (three Q planes, the K and V tiles) within
+    the 227 KB a block may have, for every head_dim it is built for."""
+    assert smem_bytes(dtype, hd) <= 232_448

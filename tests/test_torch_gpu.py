@@ -99,6 +99,54 @@ def test_flash_packed_cache_matches_plain(dev, fmt, s, starts, window):
     torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
 
 
+@pytest.mark.parametrize("fmt", ["kv_bf16", "kv_int8", "kv_mx"])
+@pytest.mark.parametrize("s", [31, 60, 132, 188, 255])
+def test_flash_ragged_chunks_match_plain(dev, fmt, s):
+    """Chunk lengths the 64-row tiles do not divide (prime, the 900-token
+    prompt's last chunk of 132), from ragged starts, global and windowed."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    b, t, kh, g, hd = 2, 512, 2, 4, 128
+    c = _packed_cache(fmt, b, t, kh, hd, gen, dev)
+    q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev)
+    start = torch.tensor([[0], [t - s - 37]], dtype=torch.int32, device=dev)
+    for window in (2**30, 100):
+        win = torch.tensor([[window]], dtype=torch.int32, device=dev)
+        args = (q, c["k"], c["v"], c.get("ke"), c.get("ve"), start, start + s, win)
+        got = flash_attend(*args, fmt=fmt)
+        want = flash_attend_ref(*args, fmt=fmt)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fmt", ["kv_bf16", "kv_int8", "kv_mx"])
+def test_flash_decode_is_one_deterministic_launch(dev, fmt):
+    """Decode at valid = 1 and at full T: within 5e-5 of plain, two calls
+    bit-identical (the last split to arrive combines in split order), one
+    CUDA launch a call (the combine runs in the same kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, t, kh, g, hd = 4, 1024, 8, 4, 128
+    c = _packed_cache(fmt, b, t, kh, hd, gen, dev)
+    q = torch.randn((b, 1, kh, g, hd), generator=gen, device=dev)
+    valid = torch.tensor([[1], [300], [1000], [t]], dtype=torch.int32, device=dev)
+    win = torch.tensor([[2**30]], dtype=torch.int32, device=dev)
+    args = (q, c["k"], c["v"], c.get("ke"), c.get("ve"), valid - 1, valid, win)
+    first = flash_attend(*args, fmt=fmt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):  # the first session of a process may miss its kernels
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = flash_attend(*args, fmt=fmt)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 1, [(e.key, e.count) for e in kernels]
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    torch.testing.assert_close(first, flash_attend_ref(*args, fmt=fmt), atol=5e-5, rtol=0)
+
+
 def test_flash_in_chunk_tail_matches_plain(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     b, s, kh, g, hd = 2, 96, 2, 4, 128
