@@ -6,10 +6,19 @@ Phases, in order; any failure exits non-zero:
 
   1. card     -- print the card's name and power limit; no CUDA -> exit 1
   2. build    -- compile every kernel under src/repro_torch/csrc (one nvcc
-                 per source, all at once) into build/kernels
+                 per source, all at once) into build/kernels; log the
+                 registers, spills and shared memory per kernel
   3. parity   -- each kernel and mode against its plain PyTorch version on
                  the card, at the main paths' shapes: qdense at M = 4 (0
-                 ulps) and ternary at M = 17, 64, 256 (0 ulps); flash
+                 ulps); the tensor-core tile (M > 8) for every decode
+                 (ternary, int4, nf4 at group 64, int8 at mx's 32) at
+                 M = 9, 17, 31, 132, 256 and N = 1040 (a ragged last
+                 block column), bf16 and f32 x, dynamic and static
+                 exponent, bias, no activation, silu, gelu, relu, and
+                 packed_qmm for all five formats at those M, 0 ulps, the
+                 unfused site equal to the fused one at M = 132, 256; the
+                 count of IMMA (int8 tensor-core) instructions in the built
+                 qdense libraries, > 0; flash
                  kv_bf16 at decode; kv_int8 and kv_mx at decode (B 4,
                  T 1024); all three formats at a prefill chunk (S 256 from
                  512, T 1024), the in-chunk tail (S = T = 256) and ragged
@@ -72,7 +81,8 @@ Phases, in order; any failure exits non-zero:
   8. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
                  (flash: at the bf16 tensor-core peak, the float32 one
-                 logged beside it)
+                 logged beside it); qdense per layer at M = 4 and 256 for
+                 every format, mx's int8 decode at group 32 included
 
 The last two lines are the `kernels` JSON and the device JSON.
 """
@@ -110,7 +120,10 @@ QDENSE_SITES = [  # (name, K, N, decode, act) -- one layer's sites, then lm_head
 LAYER_SITES = QDENSE_SITES[:-1]  # the 7 projections of one block
 FORMATS = ("ternary", "int4", "int8", "nf4", "mx")
 M_ROWS = SLOTS  # rows per decode-tick projection
-PREFILL_ROWS = (17, 64, 256)  # prefill-chunk projections: row blocks past the first
+PREFILL_ROWS = (17, 64, 256)  # prefill-chunk projections (the tensor-core tile)
+TILE_ROWS = (9, 17, 31, 132, 256)  # the tile's parity: one past the GEMV bound, ragged row blocks, a full chunk
+TILE_SITE = (4096, 1040)  # K, N of the tile's parity site: N leaves a ragged last block column
+TILE_FORMATS = ("ternary", "int4", "nf4", "mx")  # one per decode: 2-bit, 4-bit table (two), int8 at group 32
 # the staged path: 4 slots over a 1024-token kv_int8 cache, 256-token chunks;
 # prompt lengths cross every chunk boundary and the 32-token kv_mx block
 STAGED_SLOTS, STAGED_MAX_LEN, STAGED_CHUNK = 4, 1024, 256
@@ -134,7 +147,7 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # JSON row -> (kernel entry, mode); launches are counted per mode
 MODES = {
     "fused_qmm_ternary": ("ternary", "m<=8"), "fused_qmm_ternary_prefill": ("ternary", "m>8"),
-    "fused_qmm_int8": ("int8", None),
+    "fused_qmm_int8": ("int8", "m<=8"), "fused_qmm_int8_prefill": ("int8", "m>8"),
     **{f"flash_attend_{SHORT[f]}{sfx}": ("flash", f"{f}/{mode}")
        for f in SHORT for sfx, mode in (("", "decode"), ("_prefill", "prefill"))},
     "fused_qmm_int4": ("int4", "m<=8"), "fused_qmm_int4_prefill": ("int4", "m>8"),
@@ -182,16 +195,18 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
+    if _imma_count() <= 0:
+        raise SystemExit("build: the qdense libraries hold no IMMA instruction (the tile is not on the tensor cores)")
 
 
 # ---------------------------------------------------------------------------
 # 3. parity
 # ---------------------------------------------------------------------------
-def _qsite(k, n, fmt, gen, dev):
+def _qsite(k, n, fmt, gen, dev, group=GROUP):
     from repro_torch.quant.formats import quantize_weights
 
     w = torch.randn((k, n), generator=gen, device=dev) * k**-0.5
-    return quantize_weights(w, group_size=GROUP, fmt=fmt)  # mx pins its own group, 32
+    return quantize_weights(w, group_size=group, fmt=fmt)  # mx pins its own group, 32
 
 
 def _edge_rows(k, gen, dev, dtype):
@@ -279,30 +294,84 @@ def phase_parity(dev) -> dict:
 
 
 def _parity_prefill_rows(dev, gen, errs) -> list:
-    """Ternary sites at prefill-chunk M: row blocks past the first, 0 ulps."""
+    """The tensor-core tile (M > 8) against the plain versions, 0 ulps: the
+    fused site for every decode at TILE_ROWS, bf16 and float32 x, dynamic
+    and static exponent, bias with no activation, silu, gelu, relu;
+    packed_qmm for all five formats at TILE_ROWS; the unfused site equal
+    to the fused one at M = 132 and 256; then the same at M = 17 and 132
+    for each decode at the tile's other cluster lengths, 16 (mma k16,
+    64-k stages, a 4-deep ring) and 128."""
     from repro_torch.kernels.fused_qmm import fused_qmm_ref
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.quant import qdense
+    from repro_torch.quant.formats import get_format
 
     failures = []
-    for name, k, n, decode, act in QDENSE_SITES:
-        if decode != "ternary":
-            continue
-        qt = _qsite(k, n, decode, gen, dev)
-        for m in PREFILL_ROWS:
-            x = torch.cat([_edge_rows(k, gen, dev, torch.bfloat16),
-                           (torch.randn((m - M_ROWS, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)])
-            kw = dict(group=GROUP, act=act)
-            got = _entry(decode)(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
-            want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw)
-            torch.cuda.synchronize()
-            err, ulps = float((got - want).abs().max()), _ulps(got, want)
-            errs["fused_qmm_ternary_prefill"] = max(errs["fused_qmm_ternary_prefill"], err)
-            ok = bool(torch.isfinite(got).all()) and ulps == 0
-            log(f"parity qdense {name:7s} K={k:5d} N={n:6d} ternary M={m:3d} x=bfloat16 act={act}: "
-                f"max_abs_err={err:.3e} ulps={ulps} {'OK' if ok else 'FAIL'}")
-            if not ok:
-                failures.append(f"qdense {name} M={m}")
+    k, n = TILE_SITE
+    acts = [(None, None), (-4, "silu"), (None, "gelu"), (-4, "relu")]  # (static exponent, activation)
+
+    def check(key, what, got, want):
+        torch.cuda.synchronize()
+        err, ulps = float((got - want).abs().max()), _ulps(got, want)
+        if key:
+            errs[key] = max(errs[key], err)
+        ok = bool(torch.isfinite(got).all()) and ulps == 0
+        if not ok:
+            failures.append(what)
+        return ok, ulps
+
+    cases = [(fmt, GROUP, TILE_ROWS, fmt in TILE_FORMATS) for fmt in FORMATS]  # (format, group, rows, fused)
+    cases += [(fmt, g, (17, 132), True) for g in (16, 128) for fmt in ("ternary", "int4", "int8")]
+    for fmt, group, rows, fused in cases:
+        decode = _decode_of(fmt)
+        qt = _qsite(k, n, fmt, gen, dev, group)
+        bias = torch.randn((n,), generator=gen, device=dev)
+        fused_key = f"fused_qmm_{decode}_prefill"
+        for m in rows:
+            summary, before = [], len(failures)
+            if fused:
+                for dtype in (torch.bfloat16, torch.float32):
+                    x = _rows(m, k, gen, dev, dtype)
+                    for static_e, act in acts:
+                        kw = dict(group=qt.group_size, bias=bias, act=act, act_exponent=static_e)
+                        got = _entry(fmt)(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
+                        want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw)
+                        ok, ulps = check(fused_key, f"tile fused {fmt} g={qt.group_size} M={m} {dtype} "
+                                         f"static_e={static_e} act={act}", got, want)
+                        summary.append(ulps)
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            got = get_format(fmt).kernel(xq, qt.packed, qt.scale_m, group=qt.group_size)
+            want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size)
+            _, ulps_p = check(f"packed_qmm_{decode}{'_prefill' if decode == 'int4' else ''}",
+                              f"tile packed {fmt} g={qt.group_size} M={m}", got, want)
+            same = "--"
+            if m in (132, 256):
+                x = _rows(m, k, gen, dev, torch.bfloat16)
+                kw = dict(bias=bias, act="silu", backend="cuda")
+                _, ulps_u = check(None, f"tile unfused == fused {fmt} g={qt.group_size} M={m}",
+                                  qdense(x, qt, fused=False, **kw), qdense(x, qt, fused=True, **kw))
+                same = f"{ulps_u} ulps"
+            fused_note = f"fused max ulps {max(summary)} over {len(summary)} cases, " if summary else ""
+            log(f"parity tile {fmt:7s} g={qt.group_size:3d} K={k} N={n} M={m:3d}: {fused_note}packed ulps {ulps_p}, "
+                f"unfused vs fused {same} {'OK' if len(failures) == before else 'FAIL'}")
         del qt
     return failures
+
+
+def _imma_count() -> int:
+    """IMMA (int8 tensor-core) instructions in the built qdense libraries'
+    SASS (cuobjdump --dump-sass)."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(os.path.dirname(_build._nvcc())), "bin", "cuobjdump")
+    count = 0
+    for name in ("fused_qmm", "packed_qmm"):
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(_build.lib_path(name))], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        n = sum("IMMA" in line for line in sass.splitlines())
+        log(f"sass {name}: {n} IMMA instructions")
+        count += n
+    return count
 
 
 def _packed_cache(fmt, b, t, kh, hd, gen, dev):
@@ -453,8 +522,9 @@ def _decode_of(fmt: str) -> str:
 
 def _parity_formats(dev, gen, errs) -> list:
     """This slice's modes against their plain versions at 0 ulps: fused
-    int4 and nf4 on every site of one layer (M = 4 in bf16 and f32, dynamic
-    and static exponent; M = 17/64/256 in bf16); packed_qmm for all five
+    ternary, int4, nf4 and mx on every site of one layer (M = 4 in bf16 and
+    f32, dynamic and static exponent; the tile at M = 17/64/256 in bf16,
+    the site's activation); packed_qmm for all five
     formats and the unfused site (quantize_rows -> packed_qmm -> exponents
     -> activation) against the fused kernel on wq, gate and down at M = 4
     and 256; quantize_rows in bf16 and f32 at (4, 4096) and (256, 12288)."""
@@ -477,17 +547,18 @@ def _parity_formats(dev, gen, errs) -> list:
         if not ok:
             failures.append(what)
 
-    for fmt in ("int4", "nf4"):
+    for fmt in TILE_FORMATS:
+        decode = _decode_of(fmt)
         for name, k, n, _, act in LAYER_SITES:
             qt = _qsite(k, n, fmt, gen, dev)
             cases = [(M_ROWS, dt, se) for dt in (torch.bfloat16, torch.float32) for se in (None, -4)]
             cases += [(m, torch.bfloat16, None) for m in PREFILL_ROWS]
             for m, dtype, static_e in cases:
                 x = _rows(m, k, gen, dev, dtype)
-                kw = dict(group=GROUP, act=act, act_exponent=static_e)
+                kw = dict(group=qt.group_size, act=act, act_exponent=static_e)
                 got = _entry(fmt)(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
-                want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=fmt, **kw)
-                check(f"fused_qmm_{fmt}{'' if m <= 8 else '_prefill'}",
+                want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw)
+                check(f"fused_qmm_{decode}{'' if m <= 8 else '_prefill'}",
                       f"qdense {name:7s} K={k:5d} N={n:5d} {fmt} M={m:3d} x={str(dtype)[6:]} static_e={static_e} "
                       f"act={act}", got, want)
             del qt
@@ -1007,7 +1078,7 @@ def phase_formats(dev) -> dict:
     flash = ["flash_attend_int8", "flash_attend_int8_prefill"]
     runs = [("int4", None, ["fused_qmm_int4", "fused_qmm_int4_prefill", "fused_qmm_int8"] + flash, True),
             ("nf4", SMALL_DEPTH, ["fused_qmm_nf4", "fused_qmm_nf4_prefill", "fused_qmm_int8"] + flash, False),
-            ("mx", SMALL_DEPTH, ["fused_qmm_int8"] + flash, False)]
+            ("mx", SMALL_DEPTH, ["fused_qmm_int8", "fused_qmm_int8_prefill"] + flash, False)]
     total: dict = {}
 
     def add(launches):
@@ -1249,6 +1320,7 @@ QDENSE_TIMED = {
     "fused_qmm_ternary": ("ternary", "fused", M_ROWS, LAYER_SITES),
     "fused_qmm_ternary_prefill": ("ternary", "fused", PREFILL_ROWS[-1], LAYER_SITES),
     "fused_qmm_int8": ("int8", "fused", M_ROWS, LM_HEAD),
+    "fused_qmm_int8_prefill": ("mx", "fused", PREFILL_ROWS[-1], LAYER_SITES),  # mx layers: int8 decode, group 32
     "fused_qmm_int4": ("int4", "fused", M_ROWS, LAYER_SITES),
     "fused_qmm_int4_prefill": ("int4", "fused", PREFILL_ROWS[-1], LAYER_SITES),
     "fused_qmm_nf4": ("nf4", "fused", M_ROWS, LAYER_SITES),
@@ -1289,7 +1361,7 @@ def _time_site(timer, qt, w_bf16, fmt, kernel, m, act, gen, dev) -> dict:
     else:
         entry, x_bytes, kw = _entry(fmt), x.numel() * x.element_size(), dict(group=qt.group_size, act=act)
         fn = lambda: entry(x, qt.packed, qt.scale_m, qt.scale_e, **kw)  # noqa: E731
-        plain = lambda: fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=fmt, **kw)  # noqa: E731
+        plain = lambda: fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=_decode_of(fmt), **kw)  # noqa: E731
     nbytes = x_bytes + qt.nbytes() + m * n * 4
     row = dict(ms=timer(fn), plain_ms=timer(plain, iters=3, warmup=1), library_ms=timer(lambda: torch.matmul(x, w_bf16)),
                **_bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S))
@@ -1304,7 +1376,7 @@ def phase_timings(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
     rows = {name: dict.fromkeys(keys, 0.0) for name in QDENSE_TIMED}
-    for fmt in ("ternary", "int8", "int4", "nf4"):
+    for fmt in ("ternary", "int8", "int4", "nf4", "mx"):
         for name, k, n, _, act in QDENSE_SITES:
             timed = [(row, kernel, m) for row, (f, kernel, m, sites) in QDENSE_TIMED.items()
                      if f == fmt and any(site[0] == name for site in sites)]
@@ -1326,6 +1398,7 @@ def phase_timings(dev) -> dict:
         log(f"time {name} ({len(sites)} site{'s' * (len(sites) > 1)} at M={m}): kernel {row['ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms (by {row['bound_by']}), plain {row['plain_ms']:.4f} ms, torch.matmul bf16 "
             f"{row['library_ms']:.4f} ms")
+    _time_split(timer, gen, dev)
     for name, (m, d) in QUANTIZE_TIMED.items():
         x = (torch.randn((m, d), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
         nbytes = x.numel() * 2 + m * d + m * 4  # x in, int8 mantissas and int32 exponents out
@@ -1350,6 +1423,32 @@ def phase_timings(dev) -> dict:
         rows[f"flash_attend_{SHORT[fmt]}_prefill"] = _time_flash(timer, fmt, fp, case, "prefill chunk")
     rows["flash_attention"] = _time_flash_attention(timer, gen, dev)
     return rows
+
+
+def _time_split(timer, gen, dev) -> None:
+    """The tile's k-split choice (kernels/fused_qmm.py::tile_plan), logged:
+    wq and wk of a 17-row chunk (a ragged prompt's tail), which the plan
+    splits, against the same call unsplit; wk at M = 256, which it does
+    not split, against a split forced by a larger scratch budget."""
+    from repro_torch.kernels import fused_qmm as fq
+
+    cases = [(17, LAYER_SITES[0], 0), (17, LAYER_SITES[1], 0), (PREFILL_ROWS[-1], LAYER_SITES[1], 64 * 2**20)]
+    for m, (name, k, n, _, act), other_budget in cases:
+        qt = _qsite(k, n, "ternary", gen, dev)
+        x = (torch.randn((m, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        fn = lambda: _entry("ternary")(x, qt.packed, qt.scale_m, qt.scale_e, group=GROUP, act=act)  # noqa: E731
+        budget = fq.TILE_SPLIT_BYTES
+        ms, splits = {}, {}
+        for b in (budget, other_budget):
+            fq.TILE_SPLIT_BYTES = b
+            try:
+                splits[b] = fq.tile_plan(m, k, n, "ternary", GROUP)["splits"]
+                ms[b] = timer(fn)
+            finally:
+                fq.TILE_SPLIT_BYTES = budget
+        log(f"time tile k-split {name} K={k} N={n} ternary M={m}: plan {splits[budget]} split(s) "
+            f"{ms[budget]:.4f} ms; with {splits[other_budget]} split(s) {ms[other_budget]:.4f} ms")
+        del qt
 
 
 def _time_flash_attention(timer, gen, dev) -> dict:
@@ -1417,7 +1516,8 @@ def _time_flash(timer, fmt, shape, case, what) -> dict:
     return row
 
 
-KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it replaces)
+KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it replaces); first match wins
+    "fused_qmm_int8_prefill": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/int8_matmul.py:53"),
     "fused_qmm_ternary": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/ternary_matmul.py:63"),
     "fused_qmm_int8": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/int8_matmul.py:53"),
     "fused_qmm_int4": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/int4_matmul.py:53"),
@@ -1462,7 +1562,8 @@ def main() -> None:
     if not all(math.isfinite(v) for k in line["kernels"] for v in k.values() if isinstance(v, float)):
         raise SystemExit("a measured number is not finite")
     log(f"total {time.perf_counter() - t_start:.1f} s; qdense ms/plain/library/bound of 2- and 4-bit rows are sums "
-        f"over one layer's 7 sites (at M={M_ROWS}, and at M={PREFILL_ROWS[-1]} for *_prefill rows), int8 rows are "
+        f"over one layer's 7 sites (at M={M_ROWS}, and at M={PREFILL_ROWS[-1]} for *_prefill rows; "
+        f"fused_qmm_int8_prefill: mx weights, the int8 decode at group 32), fused_qmm_int8 and packed_qmm_int8 are "
         f"lm_head at M={M_ROWS}; launches are summed over the kernels API call of the parity phase and the lockstep, staged, format and serve runs")
     log(smi)
     print(json.dumps(line), flush=True)

@@ -1,11 +1,18 @@
-// Fused quantized dense site for Hopper (sm_90a): one kernel per PTQ
-// projection.  Replaces the TPU kernel repro/kernels/_common.py::fused_qmm_call
-// (_fused_kernel with decode2_tile, decode4_tile, decode_nf4_tile or the int8
-// identity decode).  The wrapper, the plain PyTorch version and the design
-// notes are in src/repro_torch/kernels/fused_qmm.py; the decodes and the
-// k-tile loop are shared with packed_qmm.cu through qmm_common.cuh.
+// Fused quantized dense site for Hopper (sm_90a).  Replaces the TPU kernel
+// repro/kernels/_common.py::fused_qmm_call (_fused_kernel with decode2_tile,
+// decode4_tile, decode_nf4_tile or the int8 identity decode).  The wrapper,
+// the plain PyTorch version and the design notes are in
+// src/repro_torch/kernels/fused_qmm.py; the decodes, the GEMV k-tile loop
+// and the tensor-core tile are shared with packed_qmm.cu through
+// qmm_common.cuh and qmm_mma.cuh.
 //
-// Grid (ceil(N / kBn), ceil(M / rpb)); 256 threads.  A block owns kBn output
+// M > 8 (fused_qmm_tile_launch): two launches.  A pre-pass quantizes each
+// row of x once (qmm::quantize_row, one block a row) into int8 scratch and
+// float exponents; then the int8 tensor-core tile of qmm_mma.cuh with this
+// site's epilogue.
+//
+// M <= 8 (fused_qmm_launch), one launch:
+// grid (ceil(N / kBn), ceil(M / rpb)); 256 threads.  A block owns kBn output
 // columns (2- and 4-bit: one per lane; int8: four per lane) and up to rpb
 // rows (8, fewer where the wrapper finds K's rows too large for shared
 // memory):
@@ -15,29 +22,11 @@
 //   3. the k-tile loop (qmm::tile_sums),
 //   4. the tile sums added in tile order, then x 2**(scale_e + e), + bias,
 //      activation.
-#include "qmm_common.cuh"
+#include "qmm_mma.cuh"
 
 namespace {
 
 using namespace qmm;
-
-enum { ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2, ACT_RELU = 3 };
-
-__device__ __forceinline__ float activate(float y, int act) {
-  if (act == ACT_SILU) {
-    const float s = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y)));
-    return __fmul_rn(y, s);
-  }
-  if (act == ACT_GELU) {
-    const float c = 0.7978845834732055664f;  // float32(sqrt(2 / pi))
-    const float cube = __fmul_rn(__fmul_rn(y, y), y);
-    const float inner = __fmul_rn(c, __fadd_rn(y, __fmul_rn(0.044715f, cube)));
-    const float cdf = __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner)));
-    return __fmul_rn(y, cdf);
-  }
-  if (act == ACT_RELU) return isnan(y) ? y : fmaxf(y, 0.0f);
-  return y;
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -149,6 +138,17 @@ fused_qmm_kernel(const T* __restrict__ x, const void* __restrict__ w,
   }
 }
 
+// The tile's pre-pass: row blockIdx.x of x -> int8 mantissas and its float exponent.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quantize_pass_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ e, int K, int act_bits,
+                     int has_static, int static_e) {
+  const size_t row = blockIdx.x;
+  const float qmax = static_cast<float>((1 << (act_bits - 1)) - 1);
+  const float ex = quantize_row(x + row * K, q + row * K, K, qmax, has_static, static_cast<float>(static_e));
+  if (threadIdx.x == 0) e[row] = ex;
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* x, const void* w, const void* scale_m, const void* scale_e,
                    const void* bias, void* out, int M, int K, int N, int group, int bk, int rpb,
@@ -198,4 +198,31 @@ extern "C" int fused_qmm_launch(int x_is_bf16, int decode, const void* x, const 
                 : launch_decode<float>(decode, x, w, scale_m, scale_e, bias, out, M, K, N, group, bk, rpb, act,
                                        act_bits, has_static, static_e, lut, s);
   return static_cast<int>(err);
+}
+
+// M > 8: the pre-pass into xq (M, K) int8 and e (M) float scratch, then the
+// tensor-core tile over `splits` k-splits of `tps` k-tiles each (ws,
+// counters: the splits' scratch, unused when splits == 1; smem: the
+// wrapper's shared-memory plan).
+extern "C" int fused_qmm_tile_launch(int x_is_bf16, int decode, int group, const void* x, const void* w,
+                                     const void* scale_m, const void* scale_e, const void* bias, void* out,
+                                     void* xq, void* e, void* ws, void* counters, int M, int K, int N, int bk,
+                                     int tps, int splits, int act, int act_bits, int has_static, int static_e,
+                                     unsigned lut0, unsigned lut1, unsigned lut2, unsigned lut3, size_t smem,
+                                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16)
+    quantize_pass_kernel<__nv_bfloat16><<<M, qmm::kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
+                                                                static_cast<int8_t*>(xq), static_cast<float*>(e), K,
+                                                                act_bits, has_static, static_e);
+  else
+    quantize_pass_kernel<float><<<M, qmm::kThreads, 0, s>>>(static_cast<const float*>(x), static_cast<int8_t*>(xq),
+                                                        static_cast<float*>(e), K, act_bits, has_static, static_e);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const qmm::tile::Args a{static_cast<const int8_t*>(xq), w, static_cast<const int8_t*>(scale_m),
+                     static_cast<const float*>(e), static_cast<const int*>(scale_e), static_cast<const float*>(bias),
+                     static_cast<float*>(out), static_cast<float*>(ws), static_cast<int*>(counters),
+                     M, K, N, bk, tps, splits, act, make_uint4(lut0, lut1, lut2, lut3)};
+  return static_cast<int>(qmm::tile::launch_any(decode, group, a, smem, s));
 }

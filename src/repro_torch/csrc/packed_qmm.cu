@@ -5,14 +5,19 @@
 // the plain PyTorch version and the design notes are in
 // src/repro_torch/kernels/packed_qmm.py.
 //
-// The fused kernel (fused_qmm.cu) without its prologue and epilogue: grid
+// M > 8 (packed_qmm_tile_launch): the int8 tensor-core tile of
+// qmm_mma.cuh over x_q as given, writing the raw sums -- the fused site's
+// tile, so its sums equal the fused kernel's bit for bit.
+//
+// M <= 8 (packed_qmm_launch): the fused kernel (fused_qmm.cu) without its
+// prologue and epilogue: grid
 // (ceil(N / kBn), ceil(M / rpb)), 256 threads, the block's int8 rows copied
 // into shared memory (16 bytes a thread step; ternary rows interleaved as
 // the 2-bit decode reads them), the same k-tile loop (qmm::tile_sums) and
 // the tile sums in tile order -- so the sums equal the fused kernel's bit
 // for bit, and the caller's exponent, bias and activation reproduce the
 // fused site.
-#include "qmm_common.cuh"
+#include "qmm_mma.cuh"
 
 namespace {
 
@@ -88,4 +93,18 @@ extern "C" int packed_qmm_launch(int decode, const void* xq, const void* w, cons
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// M > 8: the tensor-core tile over `splits` k-splits of `tps` k-tiles each
+// (ws, counters: the splits' scratch, unused when splits == 1; smem: the
+// wrapper's shared-memory plan).
+extern "C" int packed_qmm_tile_launch(int decode, int group, const void* xq, const void* w, const void* scale_m,
+                                      void* out, void* ws, void* counters, int M, int K, int N, int bk, int tps,
+                                      int splits, unsigned lut0, unsigned lut1, unsigned lut2, unsigned lut3,
+                                      size_t smem, void* stream) {
+  const qmm::tile::Args a{static_cast<const int8_t*>(xq), w, static_cast<const int8_t*>(scale_m), nullptr,
+                          nullptr, nullptr, static_cast<float*>(out), static_cast<float*>(ws),
+                          static_cast<int*>(counters), M, K, N, bk, tps, splits, 0,
+                          make_uint4(lut0, lut1, lut2, lut3)};
+  return static_cast<int>(qmm::tile::launch_any(decode, group, a, smem, static_cast<cudaStream_t>(stream)));
 }

@@ -1,10 +1,12 @@
 // Device code shared by the quantized dense kernels for Hopper (sm_90a):
 // fused_qmm.cu (the whole site), packed_qmm.cu (int8 activations already
 // quantized) and quantize_rows.cu (the unfused prologue).  One copy of the
-// DFP exponent and rounding rules, the weight decodes and the k-tile loop,
-// so every path rounds and sums the same way.
+// DFP exponent and rounding rules, the row quantizer, the weight decodes,
+// the epilogue's activations and the GEMV k-tile loop, so every path
+// rounds and sums the same way.  At M > 8 both dense kernels run the
+// tensor-core tile of qmm_mma.cuh instead of the GEMV loop below.
 //
-// A block owns up to kRows rows and kBn output columns.  Its int8 rows sit
+// The GEMV loop (M <= 8).  A block owns up to kRows rows and kBn output columns.  Its int8 rows sit
 // in shared memory (ternary: interleaved within 16-element groups so a
 // decoded word meets its x bytes); warp w reduces the k-tiles w, w+8, ...
 // (tile = bk elements): per cluster an int32 __dp4a dot, one multiply by
@@ -62,6 +64,25 @@ __device__ __forceinline__ int quantize_value(float v, float scale, float qmax) 
   return isnan(y) ? 0 : static_cast<int>(fminf(fmaxf(rintf(y), -qmax), qmax));
 }
 
+enum { ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2, ACT_RELU = 3 };
+
+// The epilogue's activation, rounded as the plain version's torch ops.
+__device__ __forceinline__ float activate(float y, int act) {
+  if (act == ACT_SILU) {
+    const float s = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y)));
+    return __fmul_rn(y, s);
+  }
+  if (act == ACT_GELU) {
+    const float c = 0.7978845834732055664f;  // float32(sqrt(2 / pi))
+    const float cube = __fmul_rn(__fmul_rn(y, y), y);
+    const float inner = __fmul_rn(c, __fadd_rn(y, __fmul_rn(0.044715f, cube)));
+    const float cdf = __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner)));
+    return __fmul_rn(y, cdf);
+  }
+  if (act == ACT_RELU) return isnan(y) ? y : fmaxf(y, 0.0f);
+  return y;
+}
+
 // The byte of a shared-memory row that holds element k: ternary rows are
 // interleaved within each 16-element group (element 4q + j at byte 4j + q)
 // to match the 2-bit decode, the other decodes read rows in order.
@@ -94,6 +115,66 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
     v[2 * i] = __uint_as_float(w[i] << 16);
     v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
   }
+}
+
+// One row of D values quantized by a whole block of kThreads threads: the
+// exponent from max |x| and whether the row holds a NaN (fmaxf drops NaN,
+// so it is tracked on the side) by row_exponent, or the static one; then
+// every value rounded by quantize_value into qr, 16 bytes of x a load.
+// Returns the float exponent in every thread.  quantize_rows.cu and
+// fused_qmm.cu's pre-pass of the tensor-core tile share it.
+template <typename T>
+__device__ __forceinline__ float quantize_row(const T* __restrict__ xr, int8_t* __restrict__ qr, int D, float qmax,
+                                              bool has_static, float static_e) {
+  constexpr int kVec = 16 / sizeof(T);
+  __shared__ float red_m[kWarps];
+  __shared__ int red_nan[kWarps];
+  __shared__ float e_sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (has_static) {
+    if (tid == 0) e_sh = static_e;
+  } else {
+    float m = 0.0f;
+    int nan = 0;
+    for (int k0 = tid * kVec; k0 < D; k0 += kThreads * kVec) {
+      float v[kVec];
+      load_vec(xr + k0, v);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) nan |= isnan(v[j]), m = fmaxf(m, fabsf(v[j]));
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      nan |= __shfl_xor_sync(0xffffffffu, nan, o);
+    }
+    if (lane == 0) red_m[warp] = m, red_nan[warp] = nan;
+    __syncthreads();
+    if (tid == 0) {
+      float mx = 0.0f;
+      int any_nan = 0;
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w]), any_nan |= red_nan[w];
+      e_sh = row_exponent(mx, any_nan, qmax);
+    }
+  }
+  __syncthreads();
+  const float e = e_sh;
+  const float sc = exp2i_f(-e);
+  for (int k0 = tid * kVec; k0 < D; k0 += kThreads * kVec) {
+    float v[kVec];
+    load_vec(xr + k0, v);
+    unsigned packed[kVec / 4];
+#pragma unroll
+    for (int j = 0; j < kVec / 4; ++j) packed[j] = 0;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+      packed[j / 4] |= (static_cast<unsigned>(quantize_value(v[j], sc, qmax)) & 0xFFu) << (8 * (j % 4));
+    if constexpr (kVec == 8) {
+      *reinterpret_cast<uint2*>(qr + k0) = make_uint2(packed[0], packed[1]);
+    } else {
+      *reinterpret_cast<unsigned*>(qr + k0) = packed[0];
+    }
+  }
+  return e;
 }
 
 // Four 4-bit fields (the low 16 bits of w) -> four int8 table entries, in

@@ -8,11 +8,14 @@ flags, so an edited source rebuilds and an unchanged one is reused.
 ``build_all`` starts one nvcc per source at once and waits for all of them.
 
 Every kernel entry counts its launches (``counted``, ``count_launch``), so a
-run can show that its path went through the kernels.
+run can show that its path went through the kernels.  Kernels that combine
+their blocks' partials in one launch share the zeroed arrival counters of
+``arrival_counters``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +25,8 @@ from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fused_qmm", "packed_qmm", "quantize_rows", "flash_attend", "flash_attention")
@@ -29,6 +34,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+
+# The quantized dense kernels take M <= GEMV_MAX_ROWS rows with their GEMV
+# kernels and more with the tensor-core tile; the launch counts split there.
+GEMV_MAX_ROWS = 8
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -98,7 +107,8 @@ def check(err: int, what: str) -> None:
 
 def counted(entry):
     """Give a kernel entry its launch counts: ``launches`` and
-    ``mode_launches`` by rows, "m<=8" (one row block) | "m>8"."""
+    ``mode_launches`` by rows, "m<=8" (the GEMV kernels) | "m>8" (the
+    tensor-core tile)."""
     entry.launches = 0
     entry.mode_launches = Counter()
     return entry
@@ -109,4 +119,22 @@ def count_launch(entry, x) -> None:
     launched the kernel or raised; a CPU tensor ran the plain version)."""
     if x.is_cuda:
         entry.launches += 1
-        entry.mode_launches["m<=8" if x.shape[0] <= 8 else "m>8"] += 1
+        entry.mode_launches["m<=8" if x.shape[0] <= GEMV_MAX_ROWS else "m>8"] += 1
+
+
+_COUNTERS: Dict = {}  # (device, stream) -> zeroed int32 arrival counters, reset by the kernels after use
+
+
+def arrival_counters(dev, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for kernels on ``stream``: the
+    last block of a group to arrive (atomicAdd) combines and resets its
+    counter, so kernels that follow on the stream find zeros again."""
+    c = _COUNTERS.get((dev, stream))
+    if c is None or c.numel() < n:
+        c = _COUNTERS[(dev, stream)] = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+    return c
+
+
+@functools.cache
+def sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count

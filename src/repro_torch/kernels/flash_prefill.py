@@ -206,21 +206,6 @@ def launch_plan(fmt: str, b: int, s: int, t: int, kh: int, g: int, hd: int, sms:
                 part_floats=b * kh * splits * g * (hd + 2), smem_cap=_DECODE_MAX_SMEM)
 
 
-_COUNTERS = {}  # (device, stream) -> zeroed int32 arrival counters, reset by the kernel after use
-
-
-def _counters(dev, stream: int, n: int) -> torch.Tensor:
-    c = _COUNTERS.get((dev, stream))
-    if c is None or c.numel() < n:
-        c = _COUNTERS[(dev, stream)] = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
-    return c
-
-
-@functools.cache
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _mode(fmt: str, s: int) -> str:
     return f"{fmt}/{'decode' if s == 1 else 'prefill'}"
 
@@ -264,7 +249,7 @@ def flash_attend(q, k, v, ke, ve, q_start, valid, window, *, fmt: str,
     for name, c, n in (("q_start", q_start, b), ("valid", valid, b), ("window", window, 1)):
         if c.dtype != torch.int32 or c.numel() != n:
             raise ValueError(f"{name} must hold {n} int32")
-    plan = launch_plan(fmt, b, s, t, kh, g, hd, _sm_count(q.device))
+    plan = launch_plan(fmt, b, s, t, kh, g, hd, _build.sm_count(q.device))
     if plan["smem"] > plan["smem_cap"]:
         raise ValueError(f"{fmt} head_dim {hd} needs {plan['smem']} bytes of shared memory (max {plan['smem_cap']})")
     for c in [q, *cache, q_start, valid, window]:
@@ -280,7 +265,7 @@ def flash_attend(q, k, v, ke, ve, q_start, valid, window, *, fmt: str,
     part = counters = None
     if s == 1:  # the splits' (m, l, P.V) rows and the pairs' arrival counters
         part = torch.empty(plan["part_floats"], dtype=torch.float32, device=q.device)
-        counters = _counters(q.device, stream, b * kh)
+        counters = _build.arrival_counters(q.device, stream, b * kh)
     ptr = lambda c: 0 if c is None else c.data_ptr()  # noqa: E731
     err = _lib()(
         _FMT_IDS[fmt], q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ke), ptr(ve),

@@ -26,19 +26,31 @@ starting from 0.  No product is contracted into an fma, so the kernel and
 the plain version agree bit for bit.  ``kernels/packed_qmm.py`` runs the
 same matmul over activations already quantized, with the same order.
 
-What bounds it on the H100: at decode M is the slot count (4), so the
-site is a GEMV over the weight stream -- 2 bits per ternary weight, 4 per
-int4/nf4 weight, one byte per int8 weight, 3.35 TB/s.  The design reads
-each weight word once from device memory with coalesced 32-bit loads,
-many in flight per lane (2- and 4-bit: a lane per output column, a run of
-words of a 512-wide k-tile loaded at once; int8: four columns per lane,
-transposed in registers for ``__dp4a``), reads x with 16-byte loads and
-keeps its quantized rows in shared memory, and runs the whole K reduction
-inside one block so the per-tile partial sums never leave the SM.  The
-4-bit table lives in four registers and is read with ``__byte_perm``
-(a ``__constant__`` table would serialise on the lanes' different nf4
-codes).  No tensor cores: at M <= 8 the matrix unit would idle on the
-weight stream either way.
+What bounds it on the H100, and the two kernels:
+
+- Decode, M <= 8 (``_build.GEMV_MAX_ROWS``): M is the slot count (4), so
+  the site is a GEMV over the weight stream -- 2 bits per ternary
+  weight, 4 per int4/nf4 weight, one byte per int8 weight, 3.35 TB/s.
+  The GEMV kernel reads each weight word once from device memory with
+  coalesced 32-bit loads, many in flight per lane (2- and 4-bit: a lane
+  per output column, a run of words of a 512-wide k-tile loaded at
+  once; int8: four columns per lane, transposed in registers for
+  ``__dp4a``), reads x with 16-byte loads and keeps its quantized rows in
+  shared memory, and runs the whole K reduction inside one block so the
+  per-tile partial sums never leave the SM.  The 4-bit table lives in
+  four registers and is read with ``__byte_perm`` (a ``__constant__``
+  table would serialise on the lanes' different nf4 codes).  No tensor
+  cores: at M <= 8 the matrix unit would idle on the weight stream
+  either way.
+- Prefill, M > 8: int8 operations, 2 M K N (50 us a layer of qwen3-8b at
+  M = 256 at the 1,979 TOP/s peak).  Two launches: a pre-pass quantizes
+  each row of x once into int8 scratch (with its float exponent), then
+  the tensor-core tile of ``csrc/qmm_mma.cuh`` -- 128 x 128 output
+  blocks, ``mma.sync`` s8 over weights decoded into shared memory, the
+  per-cluster rescale and the tile order in registers, bit-exact with
+  the plain version (see that file).  ``tile_plan`` sizes the launch
+  and splits the k-tiles of sites with few output blocks.  Both
+  launches count as one launch of the fused entry.
 """
 from __future__ import annotations
 
@@ -61,8 +73,16 @@ _MODE = {"ternary": 0, "int8": 1, "int4": 2, "nf4": 2}  # 2: a 4-bit field throu
 LUTS = {"int4": tuple(c if c < 8 else c - 16 for c in range(16)), "nf4": NF4_LUT_I8}
 _UNIT_K = {"ternary": 16, "int8": 4, "int4": 8, "nf4": 8}  # K elements per inner step of the kernel
 _ACTS = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
-_ROWS_PER_BLOCK = 8  # rows per block (at most); the kernel takes any M, no padded copy
+_ROWS_PER_BLOCK = 8  # rows per block (at most) of the GEMV kernel; it takes any M, no padded copy
 _MAX_SMEM = 232_448 - 512  # a Hopper block's shared memory, less the kernel's static part
+# The tensor-core tile (csrc/qmm_mma.cuh: kBM, kBN, kThreads, kOut): output
+# block, threads, output sums a thread; the cluster lengths it takes (mma
+# k16 at 16, k32 above; |cluster dot| <= 128 * 128 * group must stay
+# under 2**22 for its float conversion); scratch of the k-splits at most
+# TILE_SPLIT_BYTES.
+TILE_M, TILE_N, TILE_THREADS, TILE_OUT = 128, 128, 256, 64
+TILE_GROUPS = (16, 32, 64, 128)
+TILE_SPLIT_BYTES = 4 * 2**20
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +189,11 @@ def _lib():
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                    + [ctypes.c_uint] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    tile = lib.fused_qmm_tile_launch
+    tile.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_uint] * 4
+                     + [ctypes.c_size_t, ctypes.c_void_p])
+    tile.restype = ctypes.c_int
+    return fn, tile
 
 
 def smem_bytes(rows: int, k: int, decode: str, group: int, block_k: int = 512) -> int:
@@ -180,9 +204,10 @@ def smem_bytes(rows: int, k: int, decode: str, group: int, block_k: int = 512) -
 
 
 def rows_per_block(m: int, k: int, decode: str, group: int, block_k: int = 512) -> int:
-    """Rows a block takes: 8, or fewer where the block's rows, tile sums and
-    scales would not fit its shared memory (the int8 decode at K = 12288
-    with mx's 32-element clusters takes 7)."""
+    """Rows a block of the GEMV kernel (M <= 8; only that path reads it)
+    takes: 8, or fewer where the block's rows, tile sums and scales would
+    not fit its shared memory (the int8 decode at K = 12288 with mx's
+    32-element clusters takes 7)."""
     for rows in range(_ROWS_PER_BLOCK, 0, -1):
         if smem_bytes(min(m, rows), k, decode, group, block_k) <= _MAX_SMEM:
             return rows
@@ -190,9 +215,76 @@ def rows_per_block(m: int, k: int, decode: str, group: int, block_k: int = 512) 
                      f"for one row (max {_MAX_SMEM})")
 
 
+def uses_tile(m: int) -> bool:
+    """M > GEMV_MAX_ROWS rows go to the tensor-core tile, fewer to the GEMV kernel."""
+    return m > _build.GEMV_MAX_ROWS
+
+
+def tile_stage_k(group: int) -> int:
+    """k elements of one stage of the tile: 128 (64 at group 16)."""
+    return 64 if group == 16 else 128
+
+
+def tile_smem_bytes(decode: str, group: int) -> int:
+    """Dynamic shared memory of a tile block (``qmm_mma.cuh``'s Plan): a
+    ring of stages (int8 rows of x, raw weight words, scale mantissas; 4
+    stages of 64, 3 of 128), two decoded stages (weights [n][k],
+    float scales) and the output sums.  Independent of K.  The launch
+    passes it to the kernel, which refuses a size other than its Plan's."""
+    ks = tile_stage_k(group)
+    ring = 4 if ks == 64 else 3
+    clusters = ks // group
+    w = ks * TILE_N if decode == "int8" else ks // PER_WORD[decode] * TILE_N * 4
+    return (ring * (TILE_M * ks + w + clusters * TILE_N) + 2 * (TILE_N * ks + 2 * clusters * TILE_N * 4)
+            + TILE_OUT * TILE_THREADS * 4)
+
+
+def tile_plan(m: int, k: int, n: int, decode: str, group: int, block_k: int = 512, sms: int = 132) -> dict:
+    """Blocks, k-split, scratch and shared memory of one tile launch (one
+    block an SM; the kernel's grid is (N / 128, M / 128, splits)).  A
+    site whose output blocks fill at most half the SMs splits its k-tiles
+    over grid.z, into up to sms // blocks splits (at most one k-tile
+    each), as far as the scratch stays within TILE_SPLIT_BYTES: slot 0 for
+    the first split's sum, one slot per later k-tile.  Splits pay for
+    chunks of few rows; at M = 256 the scratch traffic and the combine
+    cost what the fuller grid saves (PERF.md, the k-split log)."""
+    bk = min(block_k, k)
+    nk = k // bk
+    blocks = -(-m // TILE_M) * -(-n // TILE_N)
+    splits, tps = 1, nk
+    if 2 * blocks <= sms:
+        for want in range(min(nk, sms // blocks), 1, -1):
+            per = -(-nk // want)
+            if (1 + nk - per) * m * n * 4 <= TILE_SPLIT_BYTES:
+                splits, tps = -(-nk // per), per
+                break
+    return dict(blocks=blocks, splits=splits, tps=tps, ws_floats=(1 + nk - tps) * m * n if splits > 1 else 0,
+                smem=tile_smem_bytes(decode, group))
+
+
+def check_tile(k: int, group: int, block_k: int) -> None:
+    """Raise on a tiling the tensor-core tile does not take: its cluster
+    lengths, and k-tiles of whole stages."""
+    ks = tile_stage_k(group)
+    if group not in TILE_GROUPS or min(block_k, k) % ks:
+        raise ValueError(f"the tensor-core tile (M > {_build.GEMV_MAX_ROWS}) takes group in {TILE_GROUPS} and "
+                         f"k-tiles of whole {ks}-element stages; got group={group} K={k} block_k={block_k}")
+
+
+def tile_scratch(dev, plan: dict, stream: int):
+    """(ws, counters) of a split launch, (None, None) otherwise."""
+    if plan["splits"] == 1:
+        return None, None
+    return (torch.empty(plan["ws_floats"], dtype=torch.float32, device=dev),
+            _build.arrival_counters(dev, stream, plan["blocks"]))
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def check_weights(m: int, k: int, packed, scale_m, *, decode: str, group: int, block_k: int):
-    """Raise on weights or a tiling the kernels do not take; returns (N,
-    rows per block)."""
+    """Raise on weights or a tiling the kernels do not take; returns N."""
     if decode not in DECODES:
         raise ValueError(f"unknown decode {decode!r}; supported: {DECODES}")
     n = packed.shape[1]
@@ -204,7 +296,9 @@ def check_weights(m: int, k: int, packed, scale_m, *, decode: str, group: int, b
         raise ValueError(f"scale_m must be int8 {(k // group, n)}, got {scale_m.dtype} {tuple(scale_m.shape)}")
     if k % bk or bk % group or group % _UNIT_K[decode] or n % 4:
         raise ValueError(f"unsupported tiling K={k} block_k={bk} group={group} N={n} for {decode}")
-    return n, rows_per_block(m, k, decode, group, block_k)
+    if uses_tile(m):
+        check_tile(k, group, block_k)
+    return n
 
 
 def check_operands(x: torch.Tensor, *tensors) -> None:
@@ -221,8 +315,9 @@ def fused_qmm(
     act_exponent: Optional[int] = None, block_k: int = 512,
 ) -> torch.Tensor:
     """x f32/bf16 (M, K) -> f32 (M, N).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise.  The launch counts
-    live on the format entries (``ternary_matmul_fused``, ...)."""
+    version; CUDA tensors launch the GEMV kernel (M <= 8) or the tensor-
+    core tile (M > 8), or raise.  The launch counts live on the format
+    entries (``ternary_matmul_fused``, ...)."""
     if decode not in DECODES:
         raise ValueError(f"unknown decode {decode!r}; supported: {DECODES}")
     if act not in _ACTS:
@@ -237,7 +332,7 @@ def fused_qmm(
     m, k = x.shape
     if k % (16 // x.element_size()):
         raise ValueError(f"K={k} does not split into 16-byte loads of {x.dtype}")
-    n, rpb = check_weights(m, k, packed, scale_m, decode=decode, group=group, block_k=block_k)
+    n = check_weights(m, k, packed, scale_m, decode=decode, group=group, block_k=block_k)
     if scale_e.dtype != torch.int32 or scale_e.numel() != 1:
         raise ValueError("scale_e must be one int32")
     if bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,)):
@@ -246,13 +341,21 @@ def fused_qmm(
         raise ValueError(f"act_bits={act_bits} outside the int8 mantissa range")
     check_operands(x, packed, scale_m, scale_e, *(() if bias is None else (bias,)))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = _lib()(
-        int(x.dtype == torch.bfloat16), _MODE[decode],
-        x.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), scale_e.data_ptr(),
-        0 if bias is None else bias.data_ptr(), out.data_ptr(),
-        m, k, n, group, min(block_k, k), rpb, _ACTS[act], act_bits,
-        int(act_exponent is not None), 0 if act_exponent is None else int(act_exponent),
-        *lut_words(decode), torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    gemv, tile = _lib()
+    head = (x.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), scale_e.data_ptr(), _ptr(bias), out.data_ptr())
+    static = (int(act_exponent is not None), 0 if act_exponent is None else int(act_exponent))
+    if uses_tile(m):
+        plan = tile_plan(m, k, n, decode, group, block_k, _build.sm_count(x.device))
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        e = torch.empty((m,), dtype=torch.float32, device=x.device)
+        ws, counters = tile_scratch(x.device, plan, stream)
+        err = tile(int(x.dtype == torch.bfloat16), _MODE[decode], group, *head, xq.data_ptr(), e.data_ptr(),
+                   _ptr(ws), _ptr(counters), m, k, n, min(block_k, k), plan["tps"], plan["splits"], _ACTS[act],
+                   act_bits, *static, *lut_words(decode), plan["smem"], stream)
+    else:
+        err = gemv(int(x.dtype == torch.bfloat16), _MODE[decode], *head, m, k, n, group, min(block_k, k),
+                   rows_per_block(m, k, decode, group, block_k), _ACTS[act], act_bits, *static, *lut_words(decode),
+                   stream)
     _build.check(err, "fused_qmm")
     return out

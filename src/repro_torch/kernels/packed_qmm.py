@@ -9,11 +9,13 @@ alias of ``int8_matmul``).  The caller applies ``2**(scale_e + x_e)``,
 bias and activation (``quant/backends.py``), after ``quantize_rows``.
 
 It is the fused kernel's matmul without its prologue and epilogue: the
-same decodes, block shape and float order (clusters in order within each
-k-tile, then tiles in order), so quantize_rows -> packed_qmm -> exponents
--> bias -> activation equals the fused site bit for bit.  Bound on the
-H100 as the fused site: the weight stream at decode M, int8 operations at
-prefill M; it reads int8 rows (one byte per element) instead of float.
+same two kernels (the GEMV kernel at M <= 8, the tensor-core tile of
+``csrc/qmm_mma.cuh`` at M > 8, one launch each), decodes and float order
+(clusters in order within each k-tile, then tiles in order), so
+quantize_rows -> packed_qmm -> exponents -> bias -> activation equals the
+fused site bit for bit.  Bound on the H100 as the fused site: the weight
+stream at decode M, int8 operations at prefill M; it reads int8 rows (one
+byte per element) instead of float.
 """
 from __future__ import annotations
 
@@ -23,23 +25,32 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_qmm import _MODE, check_operands, check_weights, cluster_sums, lut_words
+from repro_torch.kernels.fused_qmm import (
+    _MODE, _ptr, check_operands, check_weights, cluster_sums, lut_words, rows_per_block, tile_plan, tile_scratch,
+    uses_tile,
+)
 
 packed_qmm_ref = cluster_sums  # the plain version: the same float order, operation for operation
 
 
 @functools.cache
 def _lib():
-    fn = _build.load("packed_qmm").packed_qmm_launch
+    lib = _build.load("packed_qmm")
+    fn = lib.packed_qmm_launch
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    tile = lib.packed_qmm_tile_launch
+    tile.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 4
+                     + [ctypes.c_size_t, ctypes.c_void_p])
+    tile.restype = ctypes.c_int
+    return fn, tile
 
 
 def packed_qmm(x_q, packed, scale_m, *, decode: str, group: int, block_k: int = 512) -> torch.Tensor:
     """int8 (M, K) -> f32 (M, N).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise.  The launch counts live on the
-    format entries (``ternary_matmul``, ...)."""
+    tensors launch the GEMV kernel (M <= 8) or the tensor-core tile (M >
+    8), or raise.  The launch counts live on the format entries
+    (``ternary_matmul``, ...)."""
     if x_q.device.type == "cpu":
         return packed_qmm_ref(x_q, packed, scale_m, decode=decode, group=group, block_k=block_k)
     if x_q.dtype != torch.int8 or x_q.ndim != 2:
@@ -47,12 +58,19 @@ def packed_qmm(x_q, packed, scale_m, *, decode: str, group: int, block_k: int = 
     m, k = x_q.shape
     if k % 16:
         raise ValueError(f"K={k} does not split into 16-byte rows")
-    n, rpb = check_weights(m, k, packed, scale_m, decode=decode, group=group, block_k=block_k)
+    n = check_weights(m, k, packed, scale_m, decode=decode, group=group, block_k=block_k)
     check_operands(x_q, packed, scale_m)
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
-    err = _lib()(
-        _MODE[decode], x_q.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), out.data_ptr(),
-        m, k, n, group, min(block_k, k), rpb, *lut_words(decode), torch.cuda.current_stream(x_q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x_q.device).cuda_stream
+    gemv, tile = _lib()
+    if uses_tile(m):
+        plan = tile_plan(m, k, n, decode, group, block_k, _build.sm_count(x_q.device))
+        ws, counters = tile_scratch(x_q.device, plan, stream)
+        err = tile(_MODE[decode], group, x_q.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), out.data_ptr(),
+                   _ptr(ws), _ptr(counters), m, k, n, min(block_k, k), plan["tps"], plan["splits"],
+                   *lut_words(decode), plan["smem"], stream)
+    else:
+        err = gemv(_MODE[decode], x_q.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), out.data_ptr(), m, k, n,
+                   group, min(block_k, k), rows_per_block(m, k, decode, group, block_k), *lut_words(decode), stream)
     _build.check(err, "packed_qmm")
     return out

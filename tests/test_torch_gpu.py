@@ -310,7 +310,8 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 @pytest.mark.parametrize("m", [4, 17])
 def test_mx_long_rows_take_fewer_rows_per_block(dev, m):
-    """mx at d_ff = 12288: 32-element clusters leave room for 7 rows a block."""
+    """mx at d_ff = 12288: 32-element clusters leave room for 7 rows a
+    block of the GEMV kernel; at M = 17 the tile runs the same site."""
     from repro_torch.kernels.fused_qmm import rows_per_block
     from repro_torch.quant import qdense
 
@@ -324,6 +325,107 @@ def test_mx_long_rows_take_fewer_rows_per_block(dev, m):
     torch.cuda.synchronize()
     assert torch.equal(fused.view(torch.int32), want.view(torch.int32))
     assert torch.equal(unfused.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core tile (M > 8): every decode, ragged rows and columns, k-splits
+# ---------------------------------------------------------------------------
+TILE_FMTS = ["ternary", "int4", "nf4", "mx"]  # ternary, the 4-bit table twice, int8 at group 32
+TILE_ROWS = [9, 17, 31, 132, 256]
+# the tile's other cluster lengths, each its own code path: 16 (mma k16,
+# 64-k stages, a 4-deep ring) and 128, for each decode
+OTHER_GROUPS = [(fmt, g) for g in (16, 128) for fmt in ("ternary", "int4", "int8")]
+
+
+@pytest.mark.parametrize("fmt,group", [(fmt, 64) for fmt in TILE_FMTS] + OTHER_GROUPS)
+@pytest.mark.parametrize("m", TILE_ROWS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tile_fused_bit_exact(dev, fmt, group, m, dtype):
+    """The fused site at M > 8 (quantize pre-pass + tile): 0 ulps from the
+    plain version with bias, dynamic and static exponent, every activation
+    (mx pins group 32)."""
+    from repro_torch.quant.formats import get_format
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    k, n = 1024, 520  # N = 4 blocks of 128 + 8: a ragged last block column
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * 0.05, FMT_BITS[fmt], group, fmt=fmt)
+    x = _edge_x(m, k, gen, dev, dtype)
+    bias = torch.randn((n,), generator=gen, device=dev)
+    entry = get_format(fmt).fused_kernel
+    decode = "int8" if fmt == "mx" else fmt
+    before = entry.mode_launches["m>8"]
+    for static_e, act in [(None, None), (-3, "silu"), (None, "gelu"), (-3, "relu")]:
+        kw = dict(group=qt.group_size, bias=bias, act=act, act_exponent=static_e)
+        got = entry(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
+        want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (static_e, act)
+    assert entry.mode_launches["m>8"] == before + 4
+
+
+@pytest.mark.parametrize("fmt,group", [(fmt, 64) for fmt in FMT_BITS] + OTHER_GROUPS)
+@pytest.mark.parametrize("m", [31, 132])
+def test_tile_packed_bit_exact(dev, fmt, group, m):
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.quant.formats import get_format
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    k, n = 2048, 520
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev), FMT_BITS[fmt], group, fmt=fmt)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    got = get_format(fmt).kernel(xq, qt.packed, qt.scale_m, group=qt.group_size)
+    decode = "int8" if fmt == "mx" else fmt
+    want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("fmt", list(FMT_BITS))
+def test_tile_unfused_site_equals_fused_at_m_132(dev, fmt):
+    from repro_torch.quant import qdense
+
+    gen = torch.Generator(device=dev).manual_seed(132)
+    k, n = 2048, 520
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * 0.02, FMT_BITS[fmt], 64, fmt=fmt)
+    x = _edge_x(132, k, gen, dev, torch.bfloat16)
+    kw = dict(bias=torch.randn((n,), generator=gen, device=dev), act="silu", backend="cuda")
+    fused, unfused = qdense(x, qt, fused=True, **kw), qdense(x, qt, fused=False, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fused.view(torch.int32), unfused.view(torch.int32))
+
+
+@pytest.mark.parametrize("decode", ["ternary", "int4"])
+def test_tile_k_splits_bit_exact_and_repeatable(dev, decode):
+    """A site with few output blocks splits its k-tiles over the grid; the
+    last block adds the slots in tile order and resets its counter, so a
+    second call gives the same bits."""
+    from repro_torch.kernels.fused_qmm import tile_plan
+    from repro_torch.kernels.int4_matmul import int4_matmul_fused
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    m, k, n = 17, 4096, 1024
+    assert tile_plan(m, k, n, decode, 64)["splits"] > 1
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * 0.02, FMT_BITS[decode], 64, fmt=decode)
+    x = _edge_x(m, k, gen, dev, torch.bfloat16)
+    entry = ternary_matmul_fused if decode == "ternary" else int4_matmul_fused
+    first = entry(x, qt.packed, qt.scale_m, qt.scale_e, group=64, act="silu")
+    second = entry(x, qt.packed, qt.scale_m, qt.scale_e, group=64, act="silu")
+    want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, group=64, act="silu")
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(second.view(torch.int32), first.view(torch.int32))
+
+
+def test_tile_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels.int4_matmul import int4_matmul_fused
+
+    qt = quantize_weights(torch.randn((1024, 64), device=dev), 4, 8)
+    x = torch.randn((9, 1024), device=dev)
+    with pytest.raises(ValueError):  # group 8: no mma takes it
+        int4_matmul_fused(x, qt.packed, qt.scale_m, qt.scale_e, group=8)
+    qt = quantize_weights(torch.randn((1024, 64), device=dev), 4, 64)
+    with pytest.raises(ValueError):  # k-tiles of 64: not whole 128-wide stages
+        int4_matmul_fused(x, qt.packed, qt.scale_m, qt.scale_e, group=64, block_k=64)
 
 
 # ---------------------------------------------------------------------------
