@@ -26,8 +26,11 @@ Phases, in order; any failure exits non-zero:
                  global and a 300-token window), 5e-5; decode at valid 1
                  and at full T in every format: 5e-5, two calls
                  bit-identical, one CUDA launch a call (profiler trace);
-                 fused int4 and nf4 on every site of a layer at M = 4 and
-                 17/64/256, packed_qmm for all five formats, quantize_rows
+                 fused ternary, int4, nf4 and mx (the int8 decode at group
+                 32) on every site of a layer at M = 1, 3, 4, 5, 8 (the
+                 GEMV; mx at K = 12288 also M = 7) and 17/64/256 (the
+                 tile), lm_head at M = 1, 3, 4, 5, 8, packed_qmm for all
+                 five formats at M = 1, 4, 8, 256, quantize_rows
                  (bf16, f32; NaN, exact-edge, zero and subnormal rows), all
                  0 ulps, and the unfused site equal to the fused one;
                  flash_attention on every shape of the reference's tests and
@@ -81,8 +84,12 @@ Phases, in order; any failure exits non-zero:
   8. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
                  (flash: at the bf16 tensor-core peak, the float32 one
-                 logged beside it); qdense per layer at M = 4 and 256 for
-                 every format, mx's int8 decode at group 32 included
+                 logged beside it); qdense per site and per layer at M = 4
+                 and 256 for every format, mx's int8 decode at group 32
+                 included (fused_qmm_int8_layer, fused_qmm_int8_prefill)
+
+The traced ticks and chunks log device busy time, kernels per call and the
+qdense GEMV's device time and launches per tick.
 
 The last two lines are the `kernels` JSON and the device JSON.
 """
@@ -121,6 +128,8 @@ LAYER_SITES = QDENSE_SITES[:-1]  # the 7 projections of one block
 FORMATS = ("ternary", "int4", "int8", "nf4", "mx")
 M_ROWS = SLOTS  # rows per decode-tick projection
 PREFILL_ROWS = (17, 64, 256)  # prefill-chunk projections (the tensor-core tile)
+GEMV_ROWS = (1, 3, 4, 5, 8)  # the GEMV's parity rows: one slot, ragged fills, the tick's 4, a full 8
+GEMV_LONG_ROWS = 7  # mx at K = 12288: the int8 decode's longest rows
 TILE_ROWS = (9, 17, 31, 132, 256)  # the tile's parity: one past the GEMV bound, ragged row blocks, a full chunk
 TILE_SITE = (4096, 1040)  # K, N of the tile's parity site: N leaves a ragged last block column
 TILE_FORMATS = ("ternary", "int4", "nf4", "mx")  # one per decode: 2-bit, 4-bit table (two), int8 at group 32
@@ -147,7 +156,8 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # JSON row -> (kernel entry, mode); launches are counted per mode
 MODES = {
     "fused_qmm_ternary": ("ternary", "m<=8"), "fused_qmm_ternary_prefill": ("ternary", "m>8"),
-    "fused_qmm_int8": ("int8", "m<=8"), "fused_qmm_int8_prefill": ("int8", "m>8"),
+    "fused_qmm_int8": ("int8", "m<=8"), "fused_qmm_int8_layer": ("int8", "m<=8"),
+    "fused_qmm_int8_prefill": ("int8", "m>8"),
     **{f"flash_attend_{SHORT[f]}{sfx}": ("flash", f"{f}/{mode}")
        for f in SHORT for sfx, mode in (("", "decode"), ("_prefill", "prefill"))},
     "fused_qmm_int4": ("int4", "m<=8"), "fused_qmm_int4_prefill": ("int4", "m>8"),
@@ -496,12 +506,12 @@ def _parity_decode(dev, gen, errs) -> list:
 
 
 def _rows(m, k, gen, dev, dtype, edge=True):
-    """(m, k) activations: random rows; with ``edge``, the first 4 rows are
-    ``_edge_rows``' and, where m > 5, row 4 is all zero and row 5's
-    maximum is subnormal."""
+    """(m, k) activations: random rows; with ``edge``, the first (up to) 4
+    rows are ``_edge_rows``' and, where m > 5, row 4 is all zero and row
+    5's maximum is subnormal."""
     x = torch.randn((m, k), generator=gen, device=dev) * 0.1
     if edge:
-        x[:M_ROWS] = _edge_rows(k, gen, dev, dtype).float()
+        x[:M_ROWS] = _edge_rows(k, gen, dev, dtype).float()[:m]
     if edge and m > 5:
         x[4] = 0.0
         x[5] = torch.randn((k,), generator=gen, device=dev) * 1e-40
@@ -552,21 +562,33 @@ def _parity_formats(dev, gen, errs) -> list:
         for name, k, n, _, act in LAYER_SITES:
             qt = _qsite(k, n, fmt, gen, dev)
             cases = [(M_ROWS, dt, se) for dt in (torch.bfloat16, torch.float32) for se in (None, -4)]
+            cases += [(m, (torch.bfloat16, torch.float32)[i % 2], (None, -4)[i // 2 % 2])
+                      for i, m in enumerate(m for m in GEMV_ROWS if m != M_ROWS)]
+            cases += [(GEMV_LONG_ROWS, torch.bfloat16, None)] if fmt == "mx" and k == 12288 else []
             cases += [(m, torch.bfloat16, None) for m in PREFILL_ROWS]
             for m, dtype, static_e in cases:
                 x = _rows(m, k, gen, dev, dtype)
                 kw = dict(group=qt.group_size, act=act, act_exponent=static_e)
                 got = _entry(fmt)(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
                 want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw)
-                check(f"fused_qmm_{decode}{'' if m <= 8 else '_prefill'}",
+                check(f"fused_qmm_{decode}{('_layer' if fmt == 'mx' else '') if m <= 8 else '_prefill'}",
                       f"qdense {name:7s} K={k:5d} N={n:5d} {fmt} M={m:3d} x={str(dtype)[6:]} static_e={static_e} "
                       f"act={act}", got, want)
             del qt
+    name, k, n, decode, act = QDENSE_SITES[-1]  # lm_head, int8, at every GEMV row count
+    qt = _qsite(k, n, decode, gen, dev)
+    for i, m in enumerate(m for m in GEMV_ROWS if m != M_ROWS):
+        x = _rows(m, k, gen, dev, (torch.bfloat16, torch.float32)[i % 2])
+        kw = dict(group=qt.group_size, act=act, act_exponent=(None, -4)[i // 2 % 2])
+        check("fused_qmm_int8", f"qdense {name} K={k:5d} N={n} int8 M={m:3d} x={str(x.dtype)[6:]} "
+              f"static_e={kw['act_exponent']}", _entry(decode)(x, qt.packed, qt.scale_m, qt.scale_e, **kw),
+              fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw))
+    del qt
     for fmt in FORMATS:
         decode = _decode_of(fmt)
         for name, k, n, _, act in (LAYER_SITES[0], LAYER_SITES[4], LAYER_SITES[6]):  # wq, gate, down
             qt = _qsite(k, n, fmt, gen, dev)
-            for m in (M_ROWS, PREFILL_ROWS[-1]):
+            for m in (GEMV_ROWS[0], M_ROWS, GEMV_ROWS[-1], PREFILL_ROWS[-1]):
                 x = _rows(m, k, gen, dev, torch.bfloat16)
                 xq, _ = quantize_rows(x)
                 got = get_format(fmt).kernel(xq, qt.packed, qt.scale_m, group=qt.group_size)
@@ -799,6 +821,10 @@ def _profile(step, n: int, label: str, unit: str) -> None:
     log(f"{label}: {n} {unit}s, {wall_us / n / 1e3:.3f} ms/{unit} wall, device busy "
         f"{busy_us / n / 1e3:.3f} ms/{unit} = {busy_us / wall_us:.1%} (idle {1 - busy_us / wall_us:.1%}); "
         f"{sum(e.count for e in kernels) / n:.0f} kernels/{unit}")
+    gemv = [e for e in kernels if "gemv_kernel" in e.key]
+    if gemv:
+        log(f"{label}: qdense GEMV {sum(e.self_device_time_total for e in gemv) / n / 1e3:.3f} ms/{unit} in "
+            f"{sum(e.count for e in gemv) / n:.1f} launches/{unit}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"{label}:   {e.self_device_time_total / n:9.1f} us/{unit}  {e.count / n:6.1f}/{unit}  {e.key[:90]}")
 
@@ -1320,7 +1346,8 @@ QDENSE_TIMED = {
     "fused_qmm_ternary": ("ternary", "fused", M_ROWS, LAYER_SITES),
     "fused_qmm_ternary_prefill": ("ternary", "fused", PREFILL_ROWS[-1], LAYER_SITES),
     "fused_qmm_int8": ("int8", "fused", M_ROWS, LM_HEAD),
-    "fused_qmm_int8_prefill": ("mx", "fused", PREFILL_ROWS[-1], LAYER_SITES),  # mx layers: int8 decode, group 32
+    "fused_qmm_int8_layer": ("mx", "fused", M_ROWS, LAYER_SITES),  # mx layers: int8 decode, group 32
+    "fused_qmm_int8_prefill": ("mx", "fused", PREFILL_ROWS[-1], LAYER_SITES),
     "fused_qmm_int4": ("int4", "fused", M_ROWS, LAYER_SITES),
     "fused_qmm_int4_prefill": ("int4", "fused", PREFILL_ROWS[-1], LAYER_SITES),
     "fused_qmm_nf4": ("nf4", "fused", M_ROWS, LAYER_SITES),
@@ -1399,6 +1426,7 @@ def phase_timings(dev) -> dict:
             f"{row['bound_ms']:.4f} ms (by {row['bound_by']}), plain {row['plain_ms']:.4f} ms, torch.matmul bf16 "
             f"{row['library_ms']:.4f} ms")
     _time_split(timer, gen, dev)
+    _time_gemv_choices(timer, gen, dev)
     for name, (m, d) in QUANTIZE_TIMED.items():
         x = (torch.randn((m, d), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
         nbytes = x.numel() * 2 + m * d + m * 4  # x in, int8 mantissas and int32 exponents out
@@ -1448,6 +1476,48 @@ def _time_split(timer, gen, dev) -> None:
                 fq.TILE_SPLIT_BYTES = budget
         log(f"time tile k-split {name} K={k} N={n} ternary M={m}: plan {splits[budget]} split(s) "
             f"{ms[budget]:.4f} ms; with {splits[other_budget]} split(s) {ms[other_budget]:.4f} ms")
+        del qt
+
+
+def _time_gemv_choices(timer, gen, dev) -> None:
+    """The GEMV's two shape choices (kernels/fused_qmm.py), logged at M = 4:
+    the k-split cap (GEMV_MAX_SPLITS, the cluster size) on wk and wq
+    against a cap of 8; and the int8 routing (uses_int8_loop) on lm_head
+    and mx's gate against the other int8 kernel on the same call."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_qmm as fq
+    from repro_torch.kernels import packed_qmm as pq
+
+    for name, k, n, _, act in LAYER_SITES[:2]:
+        qt = _qsite(k, n, "ternary", gen, dev)
+        x = (torch.randn((M_ROWS, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        fn = lambda: _entry("ternary")(x, qt.packed, qt.scale_m, qt.scale_e, group=GROUP, act=act)  # noqa: E731
+        cap, ms, blocks = fq.GEMV_MAX_SPLITS, {}, {}
+        for c in (cap, 8):
+            fq.GEMV_MAX_SPLITS = c
+            try:
+                blocks[c] = fq.gemv_plan(M_ROWS, k, n, "ternary", GROUP)["blocks"]
+                ms[c] = timer(fn)
+            finally:
+                fq.GEMV_MAX_SPLITS = cap
+        log(f"time gemv k-split cap {name} K={k} N={n} ternary M={M_ROWS}: cap {cap} ({blocks[cap]} blocks) "
+            f"{ms[cap]:.4f} ms; cap 8 ({blocks[8]} blocks) {ms[8]:.4f} ms")
+        del qt
+    route = fq.uses_int8_loop
+    for name, k, n, fmt in (("lm_head", 4096, 152064, "int8"), ("gate", 4096, 12288, "mx")):
+        qt = _qsite(k, n, fmt, gen, dev)
+        x = (torch.randn((M_ROWS, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        fn = lambda: _entry(fmt)(x, qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size)  # noqa: E731
+        chosen = "int8 loop" if route("int8", n, _build.sm_count(dev)) else "GEMV"
+        ms = {chosen: timer(fn)}
+        other = "GEMV" if chosen == "int8 loop" else "int8 loop"
+        fq.uses_int8_loop = pq.uses_int8_loop = lambda d, nn, sms=132, o=other: d == "int8" and o == "int8 loop"
+        try:
+            ms[other] = timer(fn)
+        finally:
+            fq.uses_int8_loop = pq.uses_int8_loop = route
+        log(f"time gemv int8 route {name} K={k} N={n} {fmt} M={M_ROWS}: {chosen} (taken) {ms[chosen]:.4f} ms; "
+            f"{other} {ms[other]:.4f} ms")
         del qt
 
 
@@ -1563,7 +1633,8 @@ def main() -> None:
         raise SystemExit("a measured number is not finite")
     log(f"total {time.perf_counter() - t_start:.1f} s; qdense ms/plain/library/bound of 2- and 4-bit rows are sums "
         f"over one layer's 7 sites (at M={M_ROWS}, and at M={PREFILL_ROWS[-1]} for *_prefill rows; "
-        f"fused_qmm_int8_prefill: mx weights, the int8 decode at group 32), fused_qmm_int8 and packed_qmm_int8 are "
+        f"fused_qmm_int8_layer and fused_qmm_int8_prefill: mx weights, the int8 decode at group 32; their launches "
+        f"are the int8 entry's, lm_head's included), fused_qmm_int8 and packed_qmm_int8 are "
         f"lm_head at M={M_ROWS}; launches are summed over the kernels API call of the parity phase and the lockstep, staged, format and serve runs")
     log(smi)
     print(json.dumps(line), flush=True)

@@ -2,18 +2,12 @@
 // fused_qmm.cu (the whole site), packed_qmm.cu (int8 activations already
 // quantized) and quantize_rows.cu (the unfused prologue).  One copy of the
 // DFP exponent and rounding rules, the row quantizer, the weight decodes,
-// the epilogue's activations and the GEMV k-tile loop, so every path
-// rounds and sums the same way.  At M > 8 both dense kernels run the
-// tensor-core tile of qmm_mma.cuh instead of the GEMV loop below.
-//
-// The GEMV loop (M <= 8).  A block owns up to kRows rows and kBn output columns.  Its int8 rows sit
-// in shared memory (ternary: interleaved within 16-element groups so a
-// decoded word meets its x bytes); warp w reduces the k-tiles w, w+8, ...
-// (tile = bk elements): per cluster an int32 __dp4a dot, one multiply by
-// the scale mantissa, the cluster sums added in order; each tile's sum goes
-// to shared memory, and the tile sums are added in tile order.  Every float
-// product and sum uses __fmul_rn / __fadd_rn so no fma changes a bit (the
-// files are also built with --fmad=false).
+// the epilogue's activations, and the cp.async / mma.sync helpers of the
+// two int8 tensor-core kernels: the GEMV at M <= 8 (qmm_gemv.cuh) and the
+// tile at M > 8 (qmm_mma.cuh).  Every float product and sum uses
+// __fmul_rn / __fadd_rn (or one __fmaf_rn that is exact before its
+// rounding) so no contraction changes a bit (the files are also built
+// with --fmad=false).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,22 +18,21 @@ namespace qmm {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;
 constexpr float kLn2 = 0.693147182464599609375f;  // float32(log(2))
 constexpr float kTiny = 1.17549435082228750797e-38f;
 
-// Weight decodes: 16 2-bit ternary codes per int32 word; raw int8 (four
-// columns per lane, four k-rows transposed in registers); or 8 4-bit fields
-// per word mapped through a 16-entry int8 table (int4: c >= 8 -> c - 16;
-// nf4: NF4_LUT_I8), passed by the wrapper as four 32-bit words.
-enum Decode : int { kTernary = 0, kInt8 = 1, kLut4 = 2 };
+// Weight decodes: 16 2-bit ternary codes per int32 word; raw int8 ((K, N)
+// rows, transposed 4 x 4 bytes at a time); or 8 4-bit fields per word mapped
+// through a 16-entry int8 table (int4: c >= 8 -> c - 16; nf4: NF4_LUT_I8),
+// passed by the wrapper as four 32-bit words.  The GEMV reads int4 without
+// the table (kInt4: each field as the high nibble of a byte, 16 x its value).
+enum Decode : int { kTernary = 0, kInt8 = 1, kLut4 = 2, kInt4 = 3 };
 
 template <int D>
 struct Layout {
-  static constexpr int kCpt = D == kInt8 ? 4 : 1;                        // output columns per lane
-  static constexpr int kBn = 32 * kCpt;                                  // output columns per block
   static constexpr int kUnitK = D == kTernary ? 16 : (D == kInt8 ? 4 : 8);  // K elements per weight unit
 };
+constexpr unsigned kTernaryTable = 0xFF020100u;  // ternary code c -> int8 ((c + 1) & 3) - 1, byte c
 
 __device__ __forceinline__ float exp2i_f(float e) {
   // exact 2**e from the exponent bits; e integer-valued (or +-inf)
@@ -81,25 +74,6 @@ __device__ __forceinline__ float activate(float y, int act) {
   }
   if (act == ACT_RELU) return isnan(y) ? y : fmaxf(y, 0.0f);
   return y;
-}
-
-// The byte of a shared-memory row that holds element k: ternary rows are
-// interleaved within each 16-element group (element 4q + j at byte 4j + q)
-// to match the 2-bit decode, the other decodes read rows in order.
-template <int D>
-__device__ __forceinline__ int x_byte(int k) {
-  if constexpr (D == kTernary) return (k & ~15) + ((k & 3) << 2) + ((k >> 2) & 3);
-  return k;
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 // one 16-byte load: 4 float32 or 8 bf16 values, widened to float
@@ -188,181 +162,44 @@ __device__ __forceinline__ int lut4(unsigned w, const uint4& lut) {
   return static_cast<int>(__byte_perm(lo, hi, 0x3210u | ((w >> 1) & 0x4444u)));
 }
 
-// Shared memory of one block: int8 rows [rows][K], exponents [kRows], tile
-// sums [ntiles][rows][kBn], the block's scale mantissas [K/group][kBn].
-struct Smem {
-  int8_t* xq;
-  float* e;
-  float* part;
-  int8_t* sm;
-};
-
-__host__ __device__ inline size_t smem_bytes(int rows, int K, int group, int bk, int bn) {
-  return static_cast<size_t>(rows) * K + 4 * kRows + static_cast<size_t>(K / bk) * rows * bn * 4 +
-         static_cast<size_t>(K / group) * bn;
+// cp.async: 16 or 4 bytes global -> shared, zero-filled when !pred (src stays a valid address)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ Smem carve(unsigned char* smem, int rows_alloc, int K, int bk, int bn) {
-  Smem s;
-  s.xq = reinterpret_cast<int8_t*>(smem);
-  s.e = reinterpret_cast<float*>(smem + rows_alloc * K);
-  s.part = s.e + kRows;
-  s.sm = reinterpret_cast<int8_t*>(s.part + (K / bk) * rows_alloc * bn);
-  return s;
+// d = a.b + d on 16 x 8 x 32 int8 tiles, int32 sums
+__device__ __forceinline__ void mma_k32(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// the same on 16 x 8 x 16 tiles
+__device__ __forceinline__ void mma_k16(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
 }
 
-// Start the loads that do not depend on x, so their latency hides behind
-// the block's own prologue: the scale mantissas stream into shared memory
-// (cp.async), and each warp's first k-tile of 2- or 4-bit words into L2.
-template <int D>
-__device__ __forceinline__ void start_weight_loads(const Smem& s, const int8_t* __restrict__ scale_m,
-                                                   const void* __restrict__ w, int K, int N, int group,
-                                                   int bk, int col0) {
-  constexpr int kBn = Layout<D>::kBn;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_groups = K / group;
-  for (int i = tid; i < n_groups * (kBn / 4); i += kThreads) {
-    const int g = i / (kBn / 4), c4 = (i % (kBn / 4)) * 4;
-    if (col0 + c4 < N) cp_async4(s.sm + g * kBn + c4, scale_m + static_cast<size_t>(g) * N + col0 + c4);
-  }
-  cp_async_commit();
-  if constexpr (D != kInt8) {
-    const int units = bk / Layout<D>::kUnitK;
-    if (warp < K / bk && col0 + lane < N) {
-      const int32_t* wp = static_cast<const int32_t*>(w) + static_cast<size_t>(warp) * units * N + col0 + lane;
-      for (int u = 0; u < units; ++u) prefetch_l2(wp + static_cast<size_t>(u) * N);
-    }
-  }
-}
-
-// The k-tile loop: per-tile sums of (cluster dot x scale mantissa), clusters
-// in order, into s.part.  Weights load in chunks of kChunk units (a ternary
-// word = 16 k, a 4-bit word = 8 k, an int8 unit = 4 k-rows) so each lane
-// keeps several loads in flight; a cluster closes every `group / kUnitK`
-// units, whatever the chunk boundaries.
-template <int D>
-__device__ __forceinline__ void tile_sums(const Smem& s, const void* __restrict__ w, const uint4& lut,
-                                          int rows, int K, int N, int group, int bk, int col0) {
-  using L = Layout<D>;
-  constexpr int kCpt = L::kCpt, kBn = L::kBn, kUnitK = L::kUnitK;
-  constexpr int kChunk = 8;  // a full unroll of more units bloats the code (instruction cache)
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ntiles = K / bk;
-  const int per_cluster = group / kUnitK;
-  const int units = bk / kUnitK;
-  for (int t = warp; t < ntiles; t += kWarps) {
-    float acc[kRows][kCpt];
-    int dot[kRows][kCpt];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kCpt; ++c) acc[r][c] = 0.0f, dot[r][c] = 0;
-    const int col = col0 + lane * kCpt;
-    if (col < N) {
-      int g = t * bk / group;  // global cluster index
-      int in_cluster = 0;
-#pragma unroll 1
-      for (int u0 = 0; u0 < units; u0 += kChunk) {
-        int wv[kChunk][kCpt];
-#pragma unroll
-        for (int i = 0; i < kChunk; ++i) {
-          const int u = u0 + i;
-          if (u < units) {
-            if constexpr (D == kInt8) {
-              const int8_t* wp = static_cast<const int8_t*>(w);
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                wv[i][c] = __ldg(reinterpret_cast<const int*>(wp + static_cast<size_t>(t * bk + u * 4 + c) * N + col));
-            } else {
-              const int32_t* wp = static_cast<const int32_t*>(w);
-              wv[i][0] = __ldg(wp + static_cast<size_t>(t * units + u) * N + col);
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kChunk; ++i) {
-          const int u = u0 + i;
-          if (u >= units) break;
-          const int k0 = t * bk + u * kUnitK;
-          if constexpr (D == kTernary) {
-            // 16 codes -> 4 words of int8 lanes; word j holds codes
-            // 4q + j (q = 0..3), each ((c + 1) & 3) - 1 by byte-wise SIMD
-            const unsigned word = static_cast<unsigned>(wv[i][0]);
-            int wl[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const unsigned c = (word >> (2 * j)) & 0x03030303u;
-              wl[j] = static_cast<int>(__vsub4((c + 0x01010101u) & 0x03030303u, 0x01010101u));
-            }
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              if (r < rows) {
-                const int4 xw = *reinterpret_cast<const int4*>(s.xq + r * K + k0);
-                dot[r][0] = __dp4a(wl[0], xw.x, dot[r][0]);
-                dot[r][0] = __dp4a(wl[1], xw.y, dot[r][0]);
-                dot[r][0] = __dp4a(wl[2], xw.z, dot[r][0]);
-                dot[r][0] = __dp4a(wl[3], xw.w, dot[r][0]);
-              }
-            }
-          } else if constexpr (D == kLut4) {
-            // 8 fields -> elements 0-3 and 4-7 in order
-            const unsigned word = static_cast<unsigned>(wv[i][0]);
-            const int lo = lut4(word, lut), hi = lut4(word >> 16, lut);
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              if (r < rows) {
-                const int2 xw = *reinterpret_cast<const int2*>(s.xq + r * K + k0);
-                dot[r][0] = __dp4a(lo, xw.x, dot[r][0]);
-                dot[r][0] = __dp4a(hi, xw.y, dot[r][0]);
-              }
-            }
-          } else {
-            // 4 k-rows x 4 columns of bytes -> one 4-k word per column
-            const unsigned t0 = __byte_perm(wv[i][0], wv[i][1], 0x5140);
-            const unsigned t1 = __byte_perm(wv[i][2], wv[i][3], 0x5140);
-            const unsigned t2 = __byte_perm(wv[i][0], wv[i][1], 0x7362);
-            const unsigned t3 = __byte_perm(wv[i][2], wv[i][3], 0x7362);
-            const int cw[4] = {
-                static_cast<int>(__byte_perm(t0, t1, 0x5410)), static_cast<int>(__byte_perm(t0, t1, 0x7632)),
-                static_cast<int>(__byte_perm(t2, t3, 0x5410)), static_cast<int>(__byte_perm(t2, t3, 0x7632))};
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              if (r < rows) {
-                const int xw = *reinterpret_cast<const int*>(s.xq + r * K + k0);
-#pragma unroll
-                for (int c = 0; c < kCpt; ++c) dot[r][c] = __dp4a(cw[c], xw, dot[r][c]);
-              }
-            }
-          }
-          if (++in_cluster == per_cluster) {  // one multiply per cluster
-#pragma unroll
-            for (int c = 0; c < kCpt; ++c) {
-              const float sm = static_cast<float>(s.sm[g * kBn + lane * kCpt + c]);
-#pragma unroll
-              for (int r = 0; r < kRows; ++r) {
-                acc[r][c] = __fadd_rn(acc[r][c], __fmul_rn(static_cast<float>(dot[r][c]), sm));
-                dot[r][c] = 0;
-              }
-            }
-            ++g;
-            in_cluster = 0;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r < rows)
-#pragma unroll
-        for (int c = 0; c < kCpt; ++c) s.part[(t * rows + r) * kBn + lane * kCpt + c] = acc[r][c];
-  }
-}
-
-// Row r, block column c: the tile sums added in tile order.
-__device__ __forceinline__ float sum_tiles(const Smem& s, int ntiles, int rows, int bn, int r, int c) {
-  float o = 0.0f;
-  for (int t = 0; t < ntiles; ++t) o = __fadd_rn(o, s.part[(t * rows + r) * bn + c]);
-  return o;
+// Four words of 4 bytes (rows) -> four words of 4 bytes (columns): c[q] byte j = r[j] byte q.
+__device__ __forceinline__ void transpose4(const unsigned (&r)[4], unsigned (&c)[4]) {
+  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+  const unsigned t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t1, 0x5410), c[1] = __byte_perm(t0, t1, 0x7632);
+  c[2] = __byte_perm(t2, t3, 0x5410), c[3] = __byte_perm(t2, t3, 0x7632);
 }
 
 // Allow the largest dynamic shared memory a block can have next to the

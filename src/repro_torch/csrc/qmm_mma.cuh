@@ -1,7 +1,7 @@
 // The int8 tensor-core tile of the quantized dense kernels at prefill M
 // (M > 8) for Hopper (sm_90a), shared by fused_qmm.cu and packed_qmm.cu
 // the way flash_mma.cuh serves both flash kernels.  At M <= 8 both keep
-// their GEMV kernels (qmm_common.cuh); tests/test_torch_qmm_tile.py
+// their GEMV kernel (qmm_gemv.cuh); tests/test_torch_qmm_tile.py
 // emulates this file's arithmetic on the CPU.
 //
 // What bounds it: int8 operations (2 M K N at M = 256 is 50 us a layer of
@@ -124,24 +124,6 @@ __device__ __forceinline__ int tile_off(int r, int c) {
 // so the decode's 4-row reads spread over the banks.
 __device__ __forceinline__ int raw8_off(int r, int c) { return r * kBN + ((c ^ ((r >> 2) & 7)) << 4); }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 or 4 bytes global -> shared, zero-filled when !pred (src stays a valid address)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -149,13 +131,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
-// d = a.b + d on 16 x 8 x 32 int8 tiles, int32 sums
-__device__ __forceinline__ void mma_k32(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // the same with every element of C equal to c (a cluster's first mma)
 __device__ __forceinline__ void mma_k32_c(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1, int c) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
@@ -179,14 +154,6 @@ __device__ __forceinline__ uint4 decode_ternary16(unsigned w) {
   const unsigned o0 = __byte_perm(kTable, 0, od), o1 = __byte_perm(kTable, 0, od >> 16);
   return make_uint4(__byte_perm(e0, o0, 0x5140), __byte_perm(e0, o0, 0x7362), __byte_perm(e1, o1, 0x5140),
                     __byte_perm(e1, o1, 0x7362));
-}
-
-// Four words of 4 bytes (rows) -> four words of 4 bytes (columns): c[q] byte j = r[j] byte q.
-__device__ __forceinline__ void transpose4(const unsigned (&r)[4], unsigned (&c)[4]) {
-  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
-  const unsigned t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t1, 0x5410), c[1] = __byte_perm(t0, t1, 0x7632);
-  c[2] = __byte_perm(t2, t3, 0x5410), c[3] = __byte_perm(t2, t3, 0x7632);
 }
 
 struct Args {

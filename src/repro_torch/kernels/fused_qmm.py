@@ -30,18 +30,20 @@ What bounds it on the H100, and the two kernels:
 
 - Decode, M <= 8 (``_build.GEMV_MAX_ROWS``): M is the slot count (4), so
   the site is a GEMV over the weight stream -- 2 bits per ternary
-  weight, 4 per int4/nf4 weight, one byte per int8 weight, 3.35 TB/s.
-  The GEMV kernel reads each weight word once from device memory with
-  coalesced 32-bit loads, many in flight per lane (2- and 4-bit: a lane
-  per output column, a run of words of a 512-wide k-tile loaded at
-  once; int8: four columns per lane, transposed in registers for
-  ``__dp4a``), reads x with 16-byte loads and keeps its quantized rows in
-  shared memory, and runs the whole K reduction inside one block so the
-  per-tile partial sums never leave the SM.  The 4-bit table lives in
-  four registers and is read with ``__byte_perm`` (a ``__constant__``
-  table would serialise on the lanes' different nf4 codes).  No tensor
-  cores: at M <= 8 the matrix unit would idle on the weight stream
-  either way.
+  weight, 4 per int4/nf4 weight, one byte per int8 weight, 3.35 TB/s --
+  then the instructions per weight.  One launch of the GEMV of
+  ``csrc/qmm_gemv.cuh``: a warp owns 32 output columns and walks k-tiles
+  (or single clusters, on sites with few columns) in order; each lane
+  keeps its next 16-byte weight loads in flight through a cp.async ring
+  in shared memory; the decode writes mma A registers directly and
+  ``mma.sync`` s8 takes the dot products (x's int8 rows as B, rows M..7
+  zero), each cluster's C fragment started at the bits of 1.5 * 2^23 so
+  one fma gives ``float(dot) * sm`` rounded once.  ``gemv_plan`` splits
+  k-tiles over up to 4 blocks of one thread block cluster where the
+  columns alone give fewer blocks than SMs; block 0 adds the splits' tile
+  sums in tile order from distributed shared memory.  int8 sites as wide
+  as lm_head keep the 128-column loop of ``csrc/qmm_gemv8.cuh``
+  (``uses_int8_loop``).
 - Prefill, M > 8: int8 operations, 2 M K N (50 us a layer of qwen3-8b at
   M = 256 at the 1,979 TOP/s peak).  Two launches: a pre-pass quantizes
   each row of x once into int8 scratch (with its float exponent), then
@@ -70,10 +72,11 @@ TERNARY_PER_WORD = 16
 PER_WORD = {"ternary": TERNARY_PER_WORD, "int8": 1, "int4": 8, "nf4": 8}
 DECODES = tuple(PER_WORD)
 _MODE = {"ternary": 0, "int8": 1, "int4": 2, "nf4": 2}  # 2: a 4-bit field through a 16-entry table
+_GEMV_MODE = {"ternary": 0, "int8": 1, "nf4": 2, "int4": 3}  # 3: int4 fields as high nibbles, no table
 LUTS = {"int4": tuple(c if c < 8 else c - 16 for c in range(16)), "nf4": NF4_LUT_I8}
 _UNIT_K = {"ternary": 16, "int8": 4, "int4": 8, "nf4": 8}  # K elements per inner step of the kernel
 _ACTS = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
-_ROWS_PER_BLOCK = 8  # rows per block (at most) of the GEMV kernel; it takes any M, no padded copy
+_ROWS_PER_BLOCK = 8  # rows per block (at most) of the int8 GEMV kernel; it takes any M, no padded copy
 _MAX_SMEM = 232_448 - 512  # a Hopper block's shared memory, less the kernel's static part
 # The tensor-core tile (csrc/qmm_mma.cuh: kBM, kBN, kThreads, kOut): output
 # block, threads, output sums a thread; the cluster lengths it takes (mma
@@ -83,6 +86,13 @@ _MAX_SMEM = 232_448 - 512  # a Hopper block's shared memory, less the kernel's s
 TILE_M, TILE_N, TILE_THREADS, TILE_OUT = 128, 128, 256, 64
 TILE_GROUPS = (16, 32, 64, 128)
 TILE_SPLIT_BYTES = 4 * 2**20
+# The GEMV (csrc/qmm_gemv.cuh, M <= 8): output columns a warp, warps a
+# block, blocks the plan keeps resident on an SM (the kernel's
+# __launch_bounds__), k-splits of an item (one portable cluster) and the
+# dynamic shared memory a block may take at that residency; it takes the
+# tile's cluster lengths.
+GEMV_STRIP, GEMV_WARPS, GEMV_BLOCKS_PER_SM, GEMV_MAX_SPLITS = 32, 8, 2, 4
+GEMV_SMEM = 110 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -186,33 +196,131 @@ def fused_qmm_ref(
 def _lib():
     lib = _build.load("fused_qmm")
     fn = lib.fused_qmm_launch
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-                   + [ctypes.c_uint] * 4 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
+                   + [ctypes.c_uint] * 4 + [ctypes.c_size_t, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    int8 = lib.fused_qmm_int8_launch
+    int8.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    int8.restype = ctypes.c_int
     tile = lib.fused_qmm_tile_launch
     tile.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_uint] * 4
                      + [ctypes.c_size_t, ctypes.c_void_p])
     tile.restype = ctypes.c_int
-    return fn, tile
+    return fn, int8, tile
 
 
 def smem_bytes(rows: int, k: int, decode: str, group: int, block_k: int = 512) -> int:
-    """Dynamic shared memory of a block of ``rows`` rows: int8 rows,
-    exponents, tile sums, the block's scale mantissas."""
+    """Dynamic shared memory of a block of the int8 GEMV (``csrc/qmm_gemv8.cuh``)
+    with ``rows`` rows: int8 rows, exponents, tile sums, the block's scale
+    mantissas."""
     bn = 128 if decode == "int8" else 32
     return rows * k + 4 * _ROWS_PER_BLOCK + (k // min(block_k, k)) * rows * bn * 4 + (k // group) * bn
 
 
 def rows_per_block(m: int, k: int, decode: str, group: int, block_k: int = 512) -> int:
-    """Rows a block of the GEMV kernel (M <= 8; only that path reads it)
-    takes: 8, or fewer where the block's rows, tile sums and scales would
-    not fit its shared memory (the int8 decode at K = 12288 with mx's
-    32-element clusters takes 7)."""
+    """Rows a block of the int8 GEMV takes: 8, or fewer where the block's
+    rows, tile sums and scales would not fit its shared memory (K = 12288
+    with mx's 32-element clusters takes 7)."""
     for rows in range(_ROWS_PER_BLOCK, 0, -1):
         if smem_bytes(min(m, rows), k, decode, group, block_k) <= _MAX_SMEM:
             return rows
     raise ValueError(f"K={k} needs {smem_bytes(1, k, decode, group, block_k)} bytes of shared memory "
                      f"for one row (max {_MAX_SMEM})")
+
+
+def gemv_step(decode: str, group: int):
+    """(k a step, ring stages, weight bytes a lane copies a step) of the
+    GEMV's lane map for this decode and cluster length (``qmm_gemv.cuh``'s
+    Map): a step is 16 k at group 16, 64 k for ternary at groups 64 and
+    128 (a lane's whole word), else 32 k; an int8 lane copies 4 bytes of
+    each of its k-rows."""
+    sk = 16 if group == 16 else (64 if decode == "ternary" and group >= 64 else 32)
+    lane = sk if decode == "int8" else 16
+    return sk, (4 if lane == 32 else 8), lane
+
+
+def uses_int8_loop(decode: str, n: int, sms: int = 132) -> bool:
+    """M <= 8 int8 sites whose 128-column blocks alone fill the card
+    (lm_head: 1188 blocks) run the int8 loop of ``csrc/qmm_gemv8.cuh``: it
+    reads each weight row in 128-byte runs, where the GEMV's 32-column
+    strips read int8 rows in 32-byte runs (slower on lm_head; PERF.md, the
+    int8 route).  Other int8 sites (the mx layers) run the GEMV."""
+    return decode == "int8" and -(-n // 128) >= sms
+
+
+def gemv_smem_bytes(m: int, k: int, decode: str, group: int, bk: int, tps: int, cpp: int, wn: int) -> int:
+    """Dynamic shared memory of a GEMV block: the warps' rings (weight
+    bytes and scale words), the int8 rows of its k range (128-byte rounded
+    rows plus 16 bytes, so the lanes' rows fall on other banks), the piece
+    slots of one item and, with k-splits, the item's k-tile sums of every
+    split.  The launch passes it; the kernel refuses another."""
+    _, ring, lane = gemv_step(decode, group)
+    ppt, nk = bk // group // cpp, k // bk
+    stride = ((tps * bk + 127) & ~127) + 16
+    tile_sums = nk if tps < nk else 0
+    return GEMV_WARPS * ring * 32 * (lane + 4) + m * stride + (tps * ppt + tile_sums) * m * wn * GEMV_STRIP * 4
+
+
+def gemv_plan(m: int, k: int, n: int, decode: str, group: int, block_k: int = 512, sms: int = 132) -> dict:
+    """The GEMV's launch (M <= 8).  Work comes in strips of 32 columns x
+    pieces of k: whole k-tiles (``cpp`` = the tile's clusters, folded in
+    registers) or single clusters (``cpp`` = 1, on sites with few
+    columns).  A block's 8 warps take ``wn`` strips (an item) x the
+    pieces of ``tps`` k-tiles (its split), ``wn`` as small as keeps every
+    warp busy; the splits of an item (at most GEMV_MAX_SPLITS) are one
+    thread block cluster and combine through distributed shared memory.
+    Of the shapes that fit ``GEMV_SMEM`` and give at least ``sms`` blocks,
+    those whose blocks are all resident at once (no block loops over
+    items) come first, then those that give every warp the same number of
+    pieces, then whole tiles before single clusters and fewer splits
+    before more; where no shape gives ``sms`` blocks (wk and wv: 32
+    strips, so 128 blocks at 4 splits -- clusters of 8 measured slower,
+    PERF.md) the one with the most blocks is taken.  The grid is (grid_x,
+    splits), grid_x <= sms * GEMV_BLOCKS_PER_SM / splits; a block loops
+    over the items grid_x apart (gate / up: 384 strips on 192 blocks), so
+    its prologue runs once."""
+    if group not in TILE_GROUPS:
+        raise ValueError(f"the GEMV (M <= {_build.GEMV_MAX_ROWS}) takes group in {TILE_GROUPS} (its mma k is 16 or "
+                         f"32 and |cluster dot| < 2**22); got group={group}")
+    bk = min(block_k, k)
+    nk, cpt = k // bk, bk // group
+    strips = -(-n // GEMV_STRIP)
+    options = []
+    for cpp in (cpt, 1) if cpt > 1 else (1,):
+        ppt = cpt // cpp
+        for splits in range(1, min(nk, GEMV_MAX_SPLITS) + 1):
+            tps = -(-nk // splits)
+            if -(-nk // tps) != splits:
+                continue
+            pps = tps * ppt  # pieces of a strip in a block
+            wn = 1
+            while wn < GEMV_WARPS and wn * pps < GEMV_WARPS:
+                wn *= 2
+            smem = gemv_smem_bytes(m, k, decode, group, bk, tps, cpp, wn)
+            items = -(-strips // wn)
+            if smem <= GEMV_SMEM and items * splits >= sms:
+                options.append((items * splits > sms * GEMV_BLOCKS_PER_SM, wn * pps % GEMV_WARPS != 0,
+                                dict(cpp=cpp, tps=tps, splits=splits, wn=wn, items=items, smem=smem)))
+            elif smem <= GEMV_SMEM:
+                options.append((True, True, dict(cpp=cpp, tps=tps, splits=splits, wn=wn, items=items, smem=smem,
+                                                 short=True)))
+    full = [o for o in options if "short" not in o[2]]
+    if full:
+        plan = min(full, key=lambda o: o[:2])[2]  # stable: earlier shapes win ties
+    elif options:
+        plan = max((o[2] for o in options), key=lambda p: p["items"] * p["splits"])
+    else:
+        raise ValueError(f"no GEMV plan fits {GEMV_SMEM} bytes of shared memory at M={m} K={k} group={group}")
+    plan.pop("short", None)
+    cap = max(1, sms * GEMV_BLOCKS_PER_SM // plan["splits"])
+    per = -(-plan["items"] // cap)
+    grid_x = -(-plan["items"] // per)
+    return dict(plan, grid_x=grid_x, blocks=grid_x * plan["splits"])
+
+
+def gemv_args(plan: dict) -> tuple:
+    """The plan as the GEMV launchers take it."""
+    return tuple(plan[key] for key in ("tps", "splits", "wn", "cpp", "items", "grid_x"))
 
 
 def uses_tile(m: int) -> bool:
@@ -298,6 +406,7 @@ def check_weights(m: int, k: int, packed, scale_m, *, decode: str, group: int, b
         raise ValueError(f"unsupported tiling K={k} block_k={bk} group={group} N={n} for {decode}")
     if uses_tile(m):
         check_tile(k, group, block_k)
+
     return n
 
 
@@ -342,7 +451,7 @@ def fused_qmm(
     check_operands(x, packed, scale_m, scale_e, *(() if bias is None else (bias,)))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    gemv, tile = _lib()
+    gemv, gemv8, tile = _lib()
     head = (x.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), scale_e.data_ptr(), _ptr(bias), out.data_ptr())
     static = (int(act_exponent is not None), 0 if act_exponent is None else int(act_exponent))
     if uses_tile(m):
@@ -353,9 +462,12 @@ def fused_qmm(
         err = tile(int(x.dtype == torch.bfloat16), _MODE[decode], group, *head, xq.data_ptr(), e.data_ptr(),
                    _ptr(ws), _ptr(counters), m, k, n, min(block_k, k), plan["tps"], plan["splits"], _ACTS[act],
                    act_bits, *static, *lut_words(decode), plan["smem"], stream)
+    elif uses_int8_loop(decode, n, _build.sm_count(x.device)):
+        err = gemv8(int(x.dtype == torch.bfloat16), *head, m, k, n, group, min(block_k, k),
+                    rows_per_block(m, k, decode, group, block_k), _ACTS[act], act_bits, *static, stream)
     else:
-        err = gemv(int(x.dtype == torch.bfloat16), _MODE[decode], *head, m, k, n, group, min(block_k, k),
-                   rows_per_block(m, k, decode, group, block_k), _ACTS[act], act_bits, *static, *lut_words(decode),
-                   stream)
+        plan = gemv_plan(m, k, n, decode, group, block_k, _build.sm_count(x.device))
+        err = gemv(int(x.dtype == torch.bfloat16), _GEMV_MODE[decode], *head, m, k, n, group, min(block_k, k),
+                   _ACTS[act], act_bits, *static, *gemv_args(plan), *lut_words(decode), plan["smem"], stream)
     _build.check(err, "fused_qmm")
     return out

@@ -9,8 +9,9 @@ alias of ``int8_matmul``).  The caller applies ``2**(scale_e + x_e)``,
 bias and activation (``quant/backends.py``), after ``quantize_rows``.
 
 It is the fused kernel's matmul without its prologue and epilogue: the
-same two kernels (the GEMV kernel at M <= 8, the tensor-core tile of
-``csrc/qmm_mma.cuh`` at M > 8, one launch each), decodes and float order
+same kernels (the GEMV of ``csrc/qmm_gemv.cuh`` at M <= 8 -- int8:
+``csrc/qmm_gemv8.cuh`` --, the tensor-core tile of ``csrc/qmm_mma.cuh`` at
+M > 8, one launch each), plans, decodes and float order
 (clusters in order within each k-tile, then tiles in order), so
 quantize_rows -> packed_qmm -> exponents -> bias -> activation equals the
 fused site bit for bit.  Bound on the H100 as the fused site: the weight
@@ -26,8 +27,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_qmm import (
-    _MODE, _ptr, check_operands, check_weights, cluster_sums, lut_words, rows_per_block, tile_plan, tile_scratch,
-    uses_tile,
+    _GEMV_MODE, _MODE, _ptr, check_operands, check_weights, cluster_sums, gemv_args, gemv_plan, lut_words,
+    rows_per_block, tile_plan, tile_scratch, uses_int8_loop, uses_tile,
 )
 
 packed_qmm_ref = cluster_sums  # the plain version: the same float order, operation for operation
@@ -37,13 +38,17 @@ packed_qmm_ref = cluster_sums  # the plain version: the same float order, operat
 def _lib():
     lib = _build.load("packed_qmm")
     fn = lib.packed_qmm_launch
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_uint] * 4
+                   + [ctypes.c_size_t, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    int8 = lib.packed_qmm_int8_launch
+    int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    int8.restype = ctypes.c_int
     tile = lib.packed_qmm_tile_launch
     tile.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 4
                      + [ctypes.c_size_t, ctypes.c_void_p])
     tile.restype = ctypes.c_int
-    return fn, tile
+    return fn, int8, tile
 
 
 def packed_qmm(x_q, packed, scale_m, *, decode: str, group: int, block_k: int = 512) -> torch.Tensor:
@@ -62,15 +67,18 @@ def packed_qmm(x_q, packed, scale_m, *, decode: str, group: int, block_k: int = 
     check_operands(x_q, packed, scale_m)
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    gemv, tile = _lib()
+    gemv, gemv8, tile = _lib()
+    head = (x_q.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), out.data_ptr())
     if uses_tile(m):
         plan = tile_plan(m, k, n, decode, group, block_k, _build.sm_count(x_q.device))
         ws, counters = tile_scratch(x_q.device, plan, stream)
-        err = tile(_MODE[decode], group, x_q.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), out.data_ptr(),
-                   _ptr(ws), _ptr(counters), m, k, n, min(block_k, k), plan["tps"], plan["splits"],
-                   *lut_words(decode), plan["smem"], stream)
+        err = tile(_MODE[decode], group, *head, _ptr(ws), _ptr(counters), m, k, n, min(block_k, k), plan["tps"],
+                   plan["splits"], *lut_words(decode), plan["smem"], stream)
+    elif uses_int8_loop(decode, n, _build.sm_count(x_q.device)):
+        err = gemv8(*head, m, k, n, group, min(block_k, k), rows_per_block(m, k, decode, group, block_k), stream)
     else:
-        err = gemv(_MODE[decode], x_q.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), out.data_ptr(), m, k, n,
-                   group, min(block_k, k), rows_per_block(m, k, decode, group, block_k), *lut_words(decode), stream)
+        plan = gemv_plan(m, k, n, decode, group, block_k, _build.sm_count(x_q.device))
+        err = gemv(_GEMV_MODE[decode], *head, m, k, n, group, min(block_k, k), *gemv_args(plan), *lut_words(decode),
+                   plan["smem"], stream)
     _build.check(err, "packed_qmm")
     return out

@@ -328,6 +328,97 @@ def test_mx_long_rows_take_fewer_rows_per_block(dev, m):
 
 
 # ---------------------------------------------------------------------------
+# the GEMV (M <= 8): every decode and cluster length on the layer's sites
+# ---------------------------------------------------------------------------
+GEMV_SITES = [(4096, 4096, None), (4096, 1024, None), (4096, 12288, "silu"), (12288, 4096, None),
+              (4096, 1040, "gelu")]  # wq / wo, wk / wv, gate (up: gate's shape), down, a ragged last strip
+GEMV_CASES = [(fmt, g) for fmt in ("ternary", "int4", "nf4", "int8") for g in (16, 32, 64, 128)] + [("mx", 32)]
+GEMV_EPILOGUES = [(torch.bfloat16, None, None), (torch.float32, -3, "silu"), (torch.bfloat16, -3, "gelu"),
+                  (torch.float32, None, "relu")]  # (x dtype, static exponent, activation), cycled over M
+
+
+@pytest.mark.parametrize("fmt,group", GEMV_CASES)
+def test_gemv_bit_exact_on_the_layer_sites(dev, fmt, group):
+    """Fused and packed at M = 1..8 on the real site shapes and N = 1040: 0
+    ulps from the plain versions with bias, bf16 and float32 x, dynamic
+    and static exponent and every activation; the unfused site equals the
+    fused one; one launch a call."""
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.quant import qdense
+    from repro_torch.quant.formats import get_format
+
+    gen = torch.Generator(device=dev).manual_seed(group)
+    decode = "int8" if fmt == "mx" else fmt
+    entry = get_format(fmt)
+    for k, n, site_act in GEMV_SITES:
+        qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * k**-0.5, FMT_BITS[fmt], group,
+                              fmt=fmt)
+        bias = torch.randn((n,), generator=gen, device=dev)
+        for m in range(1, 9):
+            dtype, static_e, act = GEMV_EPILOGUES[(m + n) % len(GEMV_EPILOGUES)]
+            act = act or site_act
+            x = _edge_x(m, k, gen, dev, dtype)
+            kw = dict(group=qt.group_size, bias=bias, act=act, act_exponent=static_e)
+            before = entry.fused_kernel.mode_launches["m<=8"]
+            got = entry.fused_kernel(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
+            want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw)
+            torch.cuda.synchronize()
+            assert entry.fused_kernel.mode_launches["m<=8"] == before + 1
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (k, n, m, dtype, static_e, act)
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            got = entry.kernel(xq, qt.packed, qt.scale_m, group=qt.group_size)
+            want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), ("packed", k, n, m)
+            if m in (1, 4, 8):
+                qkw = dict(bias=bias, act=act, act_exponent=static_e, backend="cuda")
+                fused, unfused = qdense(x, qt, fused=True, **qkw), qdense(x, qt, fused=False, **qkw)
+                torch.cuda.synchronize()
+                assert torch.equal(fused.view(torch.int32), unfused.view(torch.int32)), ("unfused", k, n, m)
+        del qt
+
+
+@pytest.mark.parametrize("fmt,group", [("ternary", 64), ("int4", 64), ("nf4", 16), ("ternary", 32), ("mx", 32)])
+def test_gemv_k_splits_are_repeatable(dev, fmt, group):
+    """wk / wv and wq / wo split their k-tiles over a cluster of blocks
+    (gemv_plan); block 0 adds every split's tile sums in tile order, so a
+    second call, fused or packed, gives the same bits."""
+    from repro_torch.kernels.fused_qmm import gemv_plan
+    from repro_torch.quant.formats import get_format
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    decode = "int8" if fmt == "mx" else fmt
+    entry = get_format(fmt)
+    for k, n in ((4096, 1024), (4096, 4096)):
+        assert gemv_plan(4, k, n, decode, group)["splits"] > 1
+        qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * 0.02, FMT_BITS[fmt], group, fmt=fmt)
+        x = _edge_x(4, k, gen, dev, torch.bfloat16)
+        first = entry.fused_kernel(x, qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size, act="silu")
+        second = entry.fused_kernel(x, qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size, act="silu")
+        want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, group=qt.group_size, act="silu")
+        xq = torch.randint(-127, 128, (4, k), generator=gen, device=dev, dtype=torch.int8)
+        p1 = entry.kernel(xq, qt.packed, qt.scale_m, group=qt.group_size)
+        p2 = entry.kernel(xq, qt.packed, qt.scale_m, group=qt.group_size)
+        torch.cuda.synchronize()
+        assert torch.equal(first.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(second.view(torch.int32), first.view(torch.int32))
+        assert torch.equal(p2.view(torch.int32), p1.view(torch.int32))
+
+
+def test_gemv_rejects_groups_it_does_not_take(dev):
+    from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_fused
+
+    qt = quantize_weights(torch.randn((1024, 64), device=dev), 4, 8)
+    with pytest.raises(ValueError, match="GEMV"):  # group 8: no mma k takes it
+        int4_matmul_fused(torch.randn((4, 1024), device=dev), qt.packed, qt.scale_m, qt.scale_e, group=8)
+    # an int8 site as wide as lm_head takes the int8 loop, which takes any group of whole 4-row units
+    from repro_torch.kernels.fused_qmm import uses_int8_loop
+    assert uses_int8_loop("int8", 152064) and not uses_int8_loop("int8", 12288)
+    with pytest.raises(ValueError, match="GEMV"):
+        int4_matmul(torch.zeros((4, 1024), dtype=torch.int8, device=dev), qt.packed, qt.scale_m, group=8)
+
+
+# ---------------------------------------------------------------------------
 # the tensor-core tile (M > 8): every decode, ragged rows and columns, k-splits
 # ---------------------------------------------------------------------------
 TILE_FMTS = ["ternary", "int4", "nf4", "mx"]  # ternary, the 4-bit table twice, int8 at group 32
