@@ -81,7 +81,20 @@ Phases, in order; any failure exits non-zero:
                  through both engines (every tick fault kind on the float
                  model over kv_bf16, the logit kinds on the PTQ model over
                  kv_int8): one victim, the others bit-identical
-  8. timings  -- kernel, plain version, library call (a yardstick the port
+  8. artifact -- the paper's deliverable as users deploy it, at full width
+                 (qwen3-8b, 36 layers, ternary group 64, bf16, kv_int8, both
+                 flash flags): float weights made on the card from the seeded
+                 generator, calibrated on the launcher's --calibrate 2
+                 batches (every site gets a static activation exponent),
+                 saved as a packed artifact under build/ (its MB, save s,
+                 free disk), then both engines cold-started with
+                 from_artifact (cold-start s) serve the launcher's 8 requests
+                 with the in-memory calibrated model's tokens, through
+                 fused_qmm and flash_attend (launch counts > 0); the
+                 directory is deleted; a 2-layer full-width
+                 quantize_and_plan(init) must equal init_quantized bit for
+                 bit
+  9. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
                  (flash: at the bf16 tensor-core peak, the float32 one
                  logged beside it); qdense per site and per layer at M = 4
@@ -99,6 +112,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1311,7 +1325,154 @@ def _containment(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 8. timings
+# 8. the packed artifact: calibrate, save, cold-start
+# ---------------------------------------------------------------------------
+ARTIFACT_DIR = os.path.join(HERE, "build", "artifact")
+ARTIFACT_REQUIRED = {
+    "staged": ["fused_qmm_ternary", "fused_qmm_int8", "flash_attend_int8", "flash_attend_int8_prefill"],
+    "lockstep": ["fused_qmm_ternary", "fused_qmm_int8", "flash_attend_int8"],
+}
+
+
+def phase_artifact(dev) -> dict:
+    """Calibrate the full-width model, save it, serve it cold from the
+    artifact through both engines with the in-memory model's tokens."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, quantize_and_plan, save_servable
+    from repro_torch.serving import Request, SchedulerConfig, ServingEngine, StagedEngine
+    from repro_torch.training import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    cfg = _ptq_cfg(kv_fmt="kv_int8", flash_prefill=True)
+    api = build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, plan, qapi = quantize_and_plan(api, params, serve.calibration_batches(cfg, 2, dev))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    exps = dict(plan.act_exponents)
+    log(f"artifact: {cfg.name} depth {cfg.n_layers} {cfg.dtype}; float init {init_s:.2f} s; quantize + calibrate "
+        f"(2 batches of {serve.CALIB_BATCH} x {serve.CALIB_SEQ}) {quant_s:.2f} s; {len(exps)} of "
+        f"{len(plan.site_paths)} sites calibrated {exps}; peak alloc {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if set(exps) != set(plan.site_paths):
+        raise SystemExit("artifact: calibration missed sites")
+    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        step = save_servable(ARTIFACT_DIR, qapi, qparams, plan)
+        save_s = time.perf_counter() - t0
+        log(f"artifact: saved {step}: {ck.dir_bytes(ARTIFACT_DIR) / 1e6:.1f} MB in {len(os.listdir(step))} files, "
+            f"save {save_s:.2f} s; host free disk {shutil.disk_usage(ARTIFACT_DIR).free / 1e9:.1f} GB")
+        prompts = serve.draw_prompts(8, cfg.vocab)
+        warm = {engine: _direct_outputs(engine, (qparams, plan, qapi), prompts) for engine in ("staged", "lockstep")}
+        del qapi
+        torch.cuda.empty_cache()
+        total: dict = {}
+        for engine in ("staged", "lockstep"):
+            kw = dict(n_slots=STAGED_SLOTS, max_len=STAGED_MAX_LEN, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if engine == "staged":
+                eng = StagedEngine.from_artifact(ARTIFACT_DIR, sched=SchedulerConfig(prefill_chunk=STAGED_CHUNK), **kw)
+            else:
+                eng = ServingEngine.from_artifact(ARTIFACT_DIR, **kw)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            # the 36-layer tree comes back bit for bit (layer split, bf16
+            # payloads, uint32 words as int32) under the saved plan, with
+            # every site on its calibrated static exponent
+            bad = _tree_mismatch(eng.params, qparams)
+            loaded = eng.api.ctx.plan
+            dynamic = [p for p in loaded.site_paths if loaded.act_exponent(p) is None]
+            log(f"artifact {engine}: loaded tree equals the saved one: {'OK' if bad is None else f'FAIL at {bad}'}; "
+                f"loaded plan equals the saved plan: {'OK' if loaded == plan else 'FAIL'}; "
+                f"{len(loaded.site_paths) - len(dynamic)} of {len(loaded.site_paths)} sites static")
+            if bad is not None or loaded != plan or dynamic:
+                raise SystemExit(f"artifact {engine}: the cold-started tree or plan differs from the saved one "
+                                 f"(first differing leaf {bad}, sites left dynamic {dynamic[:4]})")
+            _reset_counts()
+            t0 = time.perf_counter()
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new_tokens=serve.NEW_TOKENS, max_retries=1))
+            done = eng.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = _read_counts()
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            cold = {r.uid: r.output for r in done if r.status == "finished"}
+            same = cold == warm[engine] and len(cold) == len(prompts)
+            log(f"artifact {engine}: cold start {cold_s:.2f} s (plan: {len(eng.api.ctx.plan.act_exponents)} "
+                f"calibrated), run {run_s:.3f} s, {sum(map(len, cold.values()))} tokens "
+                f"{'equal' if same else 'DIFFER from'} the in-memory calibrated model's; launches "
+                f"{({k: n for k, n in launches.items() if n})} {'OK' if same else 'FAIL'}")
+            _require_launches(launches, ARTIFACT_REQUIRED[engine], f"artifact {engine}")
+            if not same:
+                raise SystemExit(f"artifact {engine}: the cold-started tokens differ from the in-memory model's")
+            del eng
+            torch.cuda.empty_cache()
+        del qparams
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    _quantize_twin(dev)
+    log(f"artifact: phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _tree_mismatch(a, b, path="params"):
+    """The first path where two port trees differ (structure, QTensor
+    metadata, tensor dtype or any bit of a tensor), or None when they are
+    equal.  Dicts are matched by key, so key order does not matter."""
+    from repro_torch.core.quantizer import QTensor
+
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) or set(a) != set(b):
+            return path
+        return next((m for k in sorted(a) if (m := _tree_mismatch(a[k], b[k], f"{path}.{k}"))), None)
+    if isinstance(a, list) or isinstance(b, list):
+        if not (isinstance(a, list) and isinstance(b, list)) or len(a) != len(b):
+            return path
+        return next((m for i, (x, y) in enumerate(zip(a, b)) if (m := _tree_mismatch(x, y, f"{path}[{i}]"))), None)
+    if isinstance(a, QTensor) or isinstance(b, QTensor):
+        if not (isinstance(a, QTensor) and isinstance(b, QTensor)) or (
+                (a.bits, a.group_size, tuple(a.shape), a.fmt) != (b.bits, b.group_size, tuple(b.shape), b.fmt)):
+            return path
+        return next((m for f in ("packed", "scale_m", "scale_e")
+                     if (m := _tree_mismatch(getattr(a, f), getattr(b, f), f"{path}.{f}"))), None)
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return None if a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b) else path
+    return None if a == b else path
+
+
+def _quantize_twin(dev) -> None:
+    """2 layers at full width: quantize_and_plan over the float init equals
+    init_quantized (a site quantized as it is made) bit for bit."""
+    from repro_torch.models import build_model, quantize_and_plan
+
+    cfg = _ptq_cfg(n_layers=2)
+    api = build_model(cfg, device=dev)
+    q1, plan1, _ = quantize_and_plan(api, api.init(torch.Generator(device=dev).manual_seed(SEED)))
+    q2, plan2, _ = _boot(cfg, dev)
+    bad = _tree_mismatch(q1, q2)
+    same = plan1 == plan2 and bad is None
+    log(f"artifact: 2-layer twin quantize_and_plan(init) == init_quantized, every leaf and the plan: "
+        f"{'OK' if same else f'FAIL (plans equal {plan1 == plan2}, first differing leaf {bad})'}")
+    del q1, q2
+    torch.cuda.empty_cache()
+    if not same:
+        raise SystemExit("quantize_and_plan(init(gen)) differs from init_quantized(gen)")
+
+
+# ---------------------------------------------------------------------------
+# 9. timings
+
 # ---------------------------------------------------------------------------
 class _Timer:
     """CUDA-event time of one call, device memory flushed before each run
@@ -1627,6 +1788,8 @@ def main() -> None:
         launches[k] += v
     for k, v in phase_serve(dev).items():
         launches[k] += v
+    for k, v in phase_artifact(dev).items():
+        launches[k] += v
     rows = phase_timings(dev)
     line = _kernel_line(errs, launches, rows)
     if not all(math.isfinite(v) for k in line["kernels"] for v in k.values() if isinstance(v, float)):
@@ -1635,7 +1798,7 @@ def main() -> None:
         f"over one layer's 7 sites (at M={M_ROWS}, and at M={PREFILL_ROWS[-1]} for *_prefill rows; "
         f"fused_qmm_int8_layer and fused_qmm_int8_prefill: mx weights, the int8 decode at group 32; their launches "
         f"are the int8 entry's, lm_head's included), fused_qmm_int8 and packed_qmm_int8 are "
-        f"lm_head at M={M_ROWS}; launches are summed over the kernels API call of the parity phase and the lockstep, staged, format and serve runs")
+        f"lm_head at M={M_ROWS}; launches are summed over the kernels API call of the parity phase and the lockstep, staged, format, serve and artifact runs")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,28 +1,44 @@
 """Serving launcher of the port (counterpart of ``repro/launch/serve.py``):
-quantize on boot, then serve seeded requests through the staged engine
-(default) or the lockstep oracle, with the fault-tolerance knobs.
+boot a quantized model, then serve seeded requests through the staged
+engine (default) or the lockstep oracle, with the fault-tolerance knobs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \\
-        --device cpu --bits 2 --group-size 16 --requests 8 [--engine lockstep]
+        --device cpu --bits 2 --group-size 16 --requests 8 [--engine lockstep] \\
+        [--calibrate 2] [--save-artifact DIR] [--plan-json p.json]
+    PYTHONPATH=src python -m repro_torch.launch.serve --artifact DIR --device cpu --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --bits 2 \\
         --group-size 64 --kv-fmt kv_int8 --flash-decode --flash-prefill \\
         --max-len 1024 --prefill-chunk 256          # full width, on the card
 
-Boot builds the model on ``--device`` (the card unless ``--device cpu``)
-and quantizes it one site at a time from a seeded ``torch.Generator``
-(``init_quantized``), so a full-width model never holds its float weights.
-The report is the reference's: compression and plan, the kv banner,
-finished requests and tokens/s, the fault-tolerance and watchdog lines,
-queue-wait / TTFT / TPOT percentiles and the first four outputs.  With the
-same arguments the staged and lockstep engines print the same greedy
-tokens.  ``--chaos "rate=0.05,kinds=nan_logits|stall_tick,seed=0"`` injects
-seeded faults (``serving/faults.py``), ``--retries`` budgets quarantine
-retries, ``--deadline-ms / --max-queue / --ttft-slo-ms`` gate admission and
-``--tpot-slo-ms`` arms overload degradation.
+Two boot modes, as the reference's:
 
-``--artifact``, ``--save-artifact``, ``--calibrate``, ``--mesh`` and
-``--compile-cache`` are accepted but not offered yet: each exits with the
-step of ROADMAP Queue A it waits for.
+  * quantize on boot (``--arch``): the model is built on ``--device`` (the
+    card unless ``--device cpu``) from a seeded ``torch.Generator``.  With
+    ``--calibrate N`` the float weights are made whole, N batches of 2 x 16
+    tokens (each from its own seeded generator, 100 + i -- the port's own
+    draws, not the reference's ``jax.random`` ones) profile every site's
+    static activation exponent, and the float tree is dropped; without,
+    each site is quantized as it is made (``init_quantized``), so a
+    full-width model never holds its float weights.  ``--save-artifact
+    DIR`` then writes the packed artifact in the reference's format.
+  * cold start (``--artifact DIR``): packed QTensors, the plan (calibrated
+    exponents included) and the ArchConfig come from the newest intact step
+    of an artifact written by either package; no float weights, no
+    calibration.  ``--backend`` replaces the plan's backend (needed for an
+    artifact of the reference's launcher, whose default is ``xla``).
+
+``--kv-fmt`` and the flash flags are serving-time choices over either boot.
+The report is the reference's: compression and plan (or the cold-start
+banner), the kv banner, finished requests and tokens/s, the fault-tolerance
+and watchdog lines, queue-wait / TTFT / TPOT percentiles and the first four
+outputs.  With the same arguments the staged and lockstep engines print the
+same greedy tokens.  ``--chaos "rate=0.05,kinds=nan_logits|stall_tick,seed=0"``
+injects seeded faults (``serving/faults.py``), ``--retries`` budgets
+quarantine retries, ``--deadline-ms / --max-queue / --ttft-slo-ms`` gate
+admission and ``--tpot-slo-ms`` arms overload degradation.
+
+``--mesh`` and ``--compile-cache`` are accepted but not offered: each exits
+naming what it waits for.
 """
 from __future__ import annotations
 
@@ -37,7 +53,9 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core.quantizer import QTensor
-from repro_torch.models import build_model, init_quantized
+from repro_torch.models import (
+    build_model, init_quantized, load_servable, make_smoke_batch, quantize_and_plan, save_servable,
+)
 from repro_torch.models.kv_cache import resolve_kv_fmt
 from repro_torch.serving import (
     AdmissionConfig, FaultInjector, HealthConfig, Request, SamplerConfig, SchedulerConfig, ServingEngine,
@@ -46,10 +64,8 @@ from repro_torch.serving import (
 
 SEED = 0  # weights (torch.Generator) and prompts (numpy), as the reference's PRNGKey(0) / default_rng(0)
 PROMPT_TOKENS, NEW_TOKENS = 6, 8
+CALIB_BATCH, CALIB_SEQ, CALIB_SEED = 2, 16, 100  # --calibrate's batches: 2 x 16 tokens, seeds 100 + i
 UNPORTED = {  # flag -> the step it waits for
-    "artifact": "the artifact read path (ROADMAP Queue A step 3)",
-    "save_artifact": "the artifact write path (ROADMAP Queue A steps 3 and 8)",
-    "calibrate": "calibration (ROADMAP Queue A step 8)",
     "mesh": "multi-GPU serving (ROADMAP Queue A step 10)",
     "compile_cache": "a counterpart of XLA's persistent compilation cache, which the port does not have "
                      "(its kernels build once per checkout into build/kernels)",
@@ -102,22 +118,44 @@ def draw_prompts(n: int, vocab: int) -> List[List[int]]:
 
 
 def build_config(args) -> configs.ArchConfig:
-    qc = QuantConfig(w_bits=args.bits, group_size=args.group_size, mode="ptq", backend=args.backend, fmt=args.fmt)
-    cfg = (configs.get_smoke if args.smoke else configs.get_config)(args.arch, qc)
-    # the KV format and the flash knobs are serving-time choices: the weights do not depend on them
-    return dataclasses.replace(cfg, kv_fmt=args.kv_fmt or cfg.kv_fmt,
+    qc = QuantConfig(w_bits=args.bits, group_size=args.group_size, mode="ptq", backend=args.backend or "auto",
+                     fmt=args.fmt)
+    return (configs.get_smoke if args.smoke else configs.get_config)(args.arch, qc)
+
+
+def serving_view(api, args, device: torch.device):
+    """``api`` over the command line's KV format and flash knobs (serving-time
+    choices: the weights and the plan do not depend on them)."""
+    cfg = api.cfg
+    view = dataclasses.replace(cfg, kv_fmt=args.kv_fmt or cfg.kv_fmt,
                                flash_decode=args.flash_decode or cfg.flash_decode,
                                flash_prefill=args.flash_prefill or cfg.flash_prefill)
+    return api if view == cfg else build_model(view, api.ctx, device=device)
+
+
+def calibration_batches(cfg, n: int, device: torch.device):
+    """``--calibrate n``: n seeded batches of CALIB_BATCH x CALIB_SEQ tokens."""
+    return [make_smoke_batch(torch.Generator(device=device).manual_seed(CALIB_SEED + i), cfg, CALIB_BATCH, CALIB_SEQ)
+            for i in range(n)]
 
 
 def boot_quantize(args, device: torch.device):
-    """Quantize on boot: (api, qparams, plan), quantized one site at a time."""
+    """Quantize on boot: (api, qparams, plan), calibrated with ``--calibrate``."""
     cfg = build_config(args)
+    api = build_model(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    qparams, plan, api = init_quantized(build_model(cfg, device=device), gen)
+    if args.calibrate:
+        params = api.init(gen)
+        qparams, plan, api = quantize_and_plan(api, params, calibration_batches(cfg, args.calibrate, device))
+        del params
+    else:
+        qparams, plan, api = init_quantized(api, gen)
     fp_mb, q_mb = weight_mb(qparams, getattr(torch, cfg.dtype))
     print(f"arch={cfg.name} weights {fp_mb:.1f} MB -> {q_mb:.1f} MB ({fp_mb / q_mb:.1f}x)  plan: "
           f"{len(plan.site_paths)} sites, {len(plan.act_exponents)} calibrated")
+    if args.save_artifact:
+        out = save_servable(args.save_artifact, api, qparams, plan)
+        print(f"saved packed artifact to {out} (serve it with --artifact {args.save_artifact})")
     if args.plan_json:
         with open(args.plan_json, "w") as f:
             f.write(plan.to_json())
@@ -125,9 +163,25 @@ def boot_quantize(args, device: torch.device):
     return api, qparams, plan
 
 
+def boot_from_artifact(artifact_dir: str, device: torch.device, backend: Optional[str] = None):
+    """Cold start: (api, qparams, plan) from a packed on-disk artifact."""
+    t0 = time.perf_counter()
+    api, qparams, art = load_servable(artifact_dir, device=device, backend=backend)
+    plan = art.plan
+    plan_str = (f"plan: {len(plan.site_paths)} sites, {len(plan.act_exponents)} calibrated" if plan is not None
+                else "plan: none (unquantized artifact)")
+    _, q_mb = weight_mb(qparams, getattr(torch, api.cfg.dtype))
+    print(f"arch={api.cfg.name} cold-started from {art.path} in {time.perf_counter() - t0:.2f}s: {q_mb:.1f} MB "
+          f"packed, {plan_str} (fp32 never materialized)")
+    return api, qparams, plan
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve", description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None, choices=configs.ARCH_IDS)
+    ap.add_argument("--artifact", default=None, metavar="DIR",
+                    help="cold-start from a packed artifact written by either package (replaces --arch, "
+                         "--calibrate: no float weights, no requantization)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--bits", type=int, default=2, choices=[2, 4, 8])
     ap.add_argument("--fmt", default=None, metavar="NAME",
@@ -151,10 +205,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy", default="decode", choices=["decode", "prefill"],
                     help="staged engine stage arbitration: decode priority (TPOT) or prefill priority (TTFT)")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--calibrate", type=int, default=0, metavar="N",
+                    help="profile N seeded batches of 2 x 16 tokens for static activation exponents")
+    ap.add_argument("--save-artifact", default=None, metavar="DIR",
+                    help="persist the quantized model as a packed artifact")
     ap.add_argument("--plan-json", default=None, help="write the compiled QuantPlan to this path")
-    ap.add_argument("--backend", default="auto", choices=["auto", "cuda", "ref"],
+    ap.add_argument("--backend", default=None, choices=["auto", "cuda", "ref"],
                     help="qdense backend the plan carries: cuda (the kernels; plain versions on the CPU), "
-                         "ref (the bit-exact oracle), auto (cuda)")
+                         "ref (the bit-exact oracle), auto (cuda; the default); with --artifact it replaces "
+                         "the artifact plan's")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain PyTorch versions)")
     # fault tolerance: deadlines, load shedding, overload SLOs, chaos
     ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
@@ -171,9 +230,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--chaos", default=None, metavar="SPEC",
                     help="inject seeded faults, e.g. 'rate=0.01,kinds=nan_logits|kv_corrupt|stall_tick,seed=0'")
     # accepted so that the reference's command lines parse; each exits naming its step
-    ap.add_argument("--artifact", default=None, metavar="DIR", help="not ported yet")
-    ap.add_argument("--save-artifact", default=None, metavar="DIR", help="not ported yet")
-    ap.add_argument("--calibrate", type=int, default=0, metavar="N", help="not ported yet")
     ap.add_argument("--mesh", default=None, metavar="SPEC", help="not ported yet")
     ap.add_argument("--compile-cache", default=None, metavar="DIR", help="not ported yet")
     return ap
@@ -185,11 +241,15 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
     for flag, step in UNPORTED.items():
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet: it waits for {step}")
-    if not args.arch:
-        ap.error("--arch is required")
+    if bool(args.artifact) == bool(args.arch):
+        ap.error("exactly one of --arch or --artifact is required")
     device = torch.device(args.device)
     t0 = time.perf_counter()
-    api, qparams, _ = boot_quantize(args, device)
+    if args.artifact:
+        api, qparams, _ = boot_from_artifact(args.artifact, device, args.backend)
+    else:
+        api, qparams, _ = boot_quantize(args, device)
+    api = serving_view(api, args, device)
     cfg = api.cfg
     # the banner always states both flash knobs
     print(f"kv cache: fmt={resolve_kv_fmt(cfg)} flash_decode={cfg.flash_decode} flash_prefill={cfg.flash_prefill}")

@@ -1,6 +1,10 @@
 """Dense decoder, KV cache and model API (counterpart of ``repro/models``)."""
 from repro_torch.models.model_zoo import (
-    ModelApi, build_model, init_quantized, insert_prefix, quantize_and_plan,
+    ModelApi, build_model, init_quantized, insert_prefix, load_servable, make_ctx, make_smoke_batch,
+    quantize_and_plan, save_servable,
 )
 
-__all__ = ["ModelApi", "build_model", "init_quantized", "insert_prefix", "quantize_and_plan"]
+__all__ = [
+    "ModelApi", "build_model", "init_quantized", "insert_prefix", "load_servable", "make_ctx", "make_smoke_batch",
+    "quantize_and_plan", "save_servable",
+]

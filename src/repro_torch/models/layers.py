@@ -3,8 +3,10 @@
 
 Every projection goes through ``dense``: full precision (``x @ W``), or PTQ
 with a QTensor weight through ``qdense`` -- one whole-site call carrying the
-bias and activation into the kernel epilogue.  The QAT branch of the
-reference comes with the training slice.
+bias and activation into the kernel epilogue, with the plan's calibrated
+static activation exponent where the site has one.  A ctx carrying an
+``observer`` records each site's input range first (the calibration pass).
+The QAT branch of the reference comes with the training slice.
 
 Init functions take an explicit ``torch.Generator`` and ``device``, plus a
 ``leaf(path, key, tensor)`` hook every created parameter passes through, so
@@ -17,6 +19,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.core.quantizer import QTensor
+from repro_torch.quant.api import observe_site
 from repro_torch.quant.backends import apply_act, qdense
 from repro_torch.quant.plan import QuantCtx
 
@@ -45,6 +48,8 @@ def dense(p: Params, x: torch.Tensor, path: str, ctx: QuantCtx,
           act: Optional[str] = None) -> torch.Tensor:
     """Projection x @ W (+ b) (+ activation ``act``)."""
     w = p["w"]
+    if ctx.observer is not None:  # calibration pass: record this site's range
+        observe_site(ctx.observer, path, x)
     if isinstance(w, QTensor):  # PTQ: the full integer pipeline, one call
         prec = ctx.resolve(path)
         y = qdense(

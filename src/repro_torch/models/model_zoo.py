@@ -15,19 +15,27 @@ CPU request it raises.  Its members:
   insert(cache, prefix, slot) -> cache
       a B=1 prefix cache copied into batch row ``slot`` (every leaf's row
       is overwritten, so nothing of the slot's previous occupant survives)
+
+PTQ: ``quantize_and_plan`` (optionally calibrated on ``make_smoke_batch``
+batches) or ``init_quantized`` (one site at a time, never the whole float
+tree).  Artifacts: ``save_servable`` writes (qparams, plan, ArchConfig) in
+the reference's format; ``load_servable`` cold-starts from one written by
+either package, with no float weights and no calibration.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, config_from_dict, config_to_dict
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.quant import api as quant_api
+from repro_torch.quant.backends import BACKENDS
 from repro_torch.quant.plan import QuantCtx, QuantPlan, compile_policy
+from repro_torch.training import checkpoint as ckpt
 
 
 @dataclasses.dataclass
@@ -50,6 +58,11 @@ class ModelApi:
         return self.with_ctx(QuantCtx.for_plan(plan))
 
 
+def make_ctx(cfg: ArchConfig) -> QuantCtx:
+    """The pre-compile ctx of ``cfg.quant`` (``QuantCtx.from_config``)."""
+    return QuantCtx.from_config(cfg.quant)
+
+
 def insert_prefix(cache, prefix, slot: int):
     """Copy a B=1 ``prefix`` cache into batch row ``slot`` of ``cache``, in
     place (every leaf is stacked (layers, B, ...), so the batch axis is 1)."""
@@ -60,7 +73,7 @@ def insert_prefix(cache, prefix, slot: int):
 
 def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None) -> ModelApi:
     dev = resolve_device(device)
-    ctx = ctx or QuantCtx.from_config(cfg.quant)
+    ctx = ctx or make_ctx(cfg)
     if cfg.family != "dense" or cfg.n_experts or cfg.sliding_window or cfg.mrope:
         raise NotImplementedError(f"{cfg.name}: only the dense global-attention decoder is ported")
     return ModelApi(
@@ -75,10 +88,22 @@ def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None)
     )
 
 
-def quantize_and_plan(api: ModelApi, params) -> Tuple[Any, QuantPlan, ModelApi]:
-    """PTQ of float params: (qparams, plan, plan-bound api)."""
+def make_smoke_batch(gen: torch.Generator, cfg: ArchConfig, batch: int, seq: int) -> Dict[str, torch.Tensor]:
+    """A seeded (batch, seq) token batch on ``gen``'s device (the reference
+    draws its own with ``jax.random``; labels come with training)."""
+    return {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=gen.device,
+                                    dtype=torch.int32)}
+
+
+def quantize_and_plan(api: ModelApi, params, calib_batches=None) -> Tuple[Any, QuantPlan, ModelApi]:
+    """PTQ of float params: (qparams, plan, plan-bound api).  With
+    ``calib_batches`` (forward batches), a full-precision observing pass
+    profiles every site and the plan carries static DFP exponents; without,
+    every site uses dynamic per-row exponents."""
+    qc = api.cfg.quant
     qparams, plan = quant_api.quantize_model(
-        params, api.ctx.policy, mode="ptq", backend=api.cfg.quant.backend
+        params, api.ctx.policy, mode="ptq", backend=qc.backend, calib_batches=calib_batches,
+        forward=lambda p, b, ctx: api.with_ctx(ctx).forward(p, b), act_bits=qc.act_bits,
     )
     return qparams, plan, api.with_plan(plan)
 
@@ -97,3 +122,39 @@ def init_quantized(api: ModelApi, gen: torch.Generator) -> Tuple[Any, QuantPlan,
     )
     plan = compile_policy(policy, params, mode="ptq", backend=api.cfg.quant.backend)
     return params, plan, api.with_plan(plan)
+
+
+def save_servable(artifact_dir: str, api: ModelApi, qparams, plan: QuantPlan, mesh=None) -> str:
+    """Persist (qparams, plan) with the serialized ArchConfig as a
+    self-contained artifact; returns the step directory."""
+    return quant_api.save_artifact(artifact_dir, qparams, plan, extra={"arch_config": config_to_dict(api.cfg)},
+                                   mesh=mesh)
+
+
+def load_servable(artifact_dir: str, mesh=None, *, device=None,
+                  backend: Optional[str] = None) -> Tuple[ModelApi, Any, "quant_api.Artifact"]:
+    """Cold-start from a packed artifact: (api, qparams, artifact) on
+    ``device`` (the card unless ``"cpu"``).  The model is rebuilt from the
+    artifact's own ArchConfig and bound to its plan (calibrated exponents
+    included); stacked blocks split into the port's per-layer list.  The
+    plan's backend must be one of the port's, or ``backend`` replaces it
+    (an artifact of the reference's launcher names ``xla``)."""
+    dev = resolve_device(device)
+    art = quant_api.load_artifact(artifact_dir, mesh=mesh, device=dev)
+    cfg_dict = art.extra.get("arch_config")
+    if cfg_dict is None:
+        raise ValueError(f"artifact at {artifact_dir!r} carries no 'arch_config' metadata; save it with "
+                         "repro_torch.models.save_servable")
+    params = dict(art.params)
+    if "blocks" in params:
+        params["blocks"] = ckpt.unstack(params["blocks"])
+    api = build_model(config_from_dict(cfg_dict), device=dev)
+    plan = art.plan
+    if plan is not None:
+        if backend is not None:
+            plan = dataclasses.replace(plan, backend=backend)
+        if plan.backend not in BACKENDS + ("auto",):
+            raise ValueError(f"artifact at {artifact_dir!r}: its plan's backend {plan.backend!r} is not one of the "
+                             f"port's {BACKENDS + ('auto',)}; pass backend= to serve it through one of them")
+        api = api.with_plan(plan)
+    return api, params, art

@@ -2,7 +2,9 @@
 (counterpart of ``repro/quant``)."""
 from repro_torch.core.policy import LayerPrecision, PrecisionPolicy
 from repro_torch.core.quantizer import QTensor
-from repro_torch.quant.api import quantize_model, quantize_params
+from repro_torch.quant.api import (
+    Artifact, Observer, load_artifact, observe_site, quantize_model, quantize_params, save_artifact,
+)
 from repro_torch.quant.backends import qdense, qmatmul, quantize_activations
 from repro_torch.quant.formats import (
     decode_codes,
@@ -14,9 +16,8 @@ from repro_torch.quant.formats import (
 from repro_torch.quant.plan import QuantCtx, QuantPlan, compile_policy, iter_weight_sites
 
 __all__ = [
-    "LayerPrecision", "PrecisionPolicy", "QTensor", "QuantCtx", "QuantPlan",
+    "Artifact", "LayerPrecision", "Observer", "PrecisionPolicy", "QTensor", "QuantCtx", "QuantPlan",
     "compile_policy", "decode_codes", "dequantize_weights", "format_of",
-    "get_format", "iter_weight_sites", "qdense", "qmatmul",
-    "quantize_activations", "quantize_model", "quantize_params",
-    "quantize_weights",
+    "get_format", "iter_weight_sites", "load_artifact", "observe_site", "qdense", "qmatmul",
+    "quantize_activations", "quantize_model", "quantize_params", "quantize_weights", "save_artifact",
 ]

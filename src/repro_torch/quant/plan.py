@@ -1,15 +1,20 @@
 """Compiled precision plans (counterpart of ``repro/quant/plan.py``).
 
 A ``QuantPlan`` is a ``PrecisionPolicy`` resolved once against a parameter
-tree; ``QuantCtx`` is the per-forward view models consult.  Site paths are
-the reference's: per-layer block lists add no path component, exactly as
-the reference's stacked layer axis does (``blocks/attn/wq``, ...).
+tree, JSON-serializable in the reference's format (``to_json`` /
+``from_json``, so an artifact's plan reads the same in both packages) and
+calibration-aware: ``act_exponents`` maps a site path to its profiled
+static 8-bit DFP activation exponent; sites without one use dynamic per-row
+exponents.  ``QuantCtx`` is the per-forward view models consult: mode,
+backend, plan or policy, and an optional calibration observer.  Site paths
+are the reference's: per-layer block lists add no path component, exactly
+as the reference's stacked layer axis does (``blocks/attn/wq``, ...).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Optional, Tuple
+from typing import Any, MutableMapping, Optional, Tuple
 
 import torch
 
@@ -45,6 +50,17 @@ class QuantPlan:
             return None
         return e
 
+    def sites(self) -> Tuple[Tuple[str, LayerPrecision], ...]:
+        return tuple(zip(self.site_paths, self.site_precisions))
+
+    @property
+    def calibrated(self) -> bool:
+        return bool(self.act_exponents)
+
+    def with_act_exponents(self, exps) -> "QuantPlan":
+        pairs = tuple(sorted((str(k), int(v)) for k, v in exps.items()))
+        return dataclasses.replace(self, act_exponents=pairs)
+
     def to_json(self) -> str:
         """The reference's plan JSON (version 1), field for field."""
         pol = None
@@ -61,6 +77,24 @@ class QuantPlan:
             "policy": pol,
             "act_exponents": [[p, e] for p, e in self.act_exponents],
         })
+
+    @classmethod
+    def from_json(cls, blob: str) -> "QuantPlan":
+        d = json.loads(blob)
+        pol = None
+        if d.get("policy") is not None:
+            pol = PrecisionPolicy(
+                default=LayerPrecision(**d["policy"]["default"]),
+                overrides=tuple((pat, LayerPrecision(**p)) for pat, p in d["policy"]["overrides"]),
+            )
+        return cls(
+            site_paths=tuple(path for path, _ in d["sites"]),
+            site_precisions=tuple(LayerPrecision(**p) for _, p in d["sites"]),
+            policy=pol,
+            mode=d["mode"],
+            backend=d["backend"],
+            act_exponents=tuple((p, int(e)) for p, e in d["act_exponents"]),
+        )
 
 
 def is_projection_site(key: str, val) -> bool:
@@ -106,12 +140,15 @@ def compile_policy(policy: PrecisionPolicy, params, *, mode: str = "ptq",
 
 @dataclasses.dataclass(frozen=True)
 class QuantCtx:
-    """mode 'fp' | 'ptq'; backend 'auto' | 'cuda' | 'ref'."""
+    """mode 'fp' | 'ptq'; backend 'auto' | 'cuda' | 'ref'.  ``observer``: a
+    mutable {site: {"max_abs", "msq", "count"}} host store; when set,
+    ``dense()`` records each site's input range (the calibration pass)."""
 
     mode: str = "fp"
     policy: Optional[PrecisionPolicy] = None
     backend: str = "auto"
     plan: Optional[QuantPlan] = None
+    observer: Optional[MutableMapping] = dataclasses.field(default=None, compare=False)
 
     @staticmethod
     def fp() -> "QuantCtx":
@@ -136,6 +173,9 @@ class QuantCtx:
     @classmethod
     def for_plan(cls, plan: QuantPlan) -> "QuantCtx":
         return cls(plan.mode, plan.policy, plan.backend, plan=plan)
+
+    def with_observer(self, observer: MutableMapping) -> "QuantCtx":
+        return dataclasses.replace(self, observer=observer)
 
     def resolve(self, path: str) -> Optional[LayerPrecision]:
         if self.plan is not None:

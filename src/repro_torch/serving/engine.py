@@ -145,6 +145,16 @@ class _EngineBase:
         self._zero_prefix = None  # lazy fresh B=1 cache (slot clearing)
         self._poison_prefix = None  # lazy NaN-filled B=1 cache (chaos kv_corrupt)
 
+    @classmethod
+    def from_artifact(cls, artifact_dir: str, *, device=None, **kwargs):
+        """Cold-start an engine from a packed artifact (``load_servable``):
+        the QTensor tree under the artifact's plan, on ``device`` -- no
+        float weights, no calibration, no re-quantization."""
+        from repro_torch.models.model_zoo import load_servable  # lazy: serving stays model-agnostic
+
+        api, qparams, _ = load_servable(artifact_dir, device=device)
+        return cls(api, qparams, **kwargs)
+
     # -- client API --------------------------------------------------------
     def submit(self, req: Request, *, strict: bool = False) -> Request:
         """Admit, reject or shed one request; returns it with ``status``

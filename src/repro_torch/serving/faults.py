@@ -1,5 +1,5 @@
-"""Seeded, deterministic fault injection for the serving engines
-(counterpart of the tick-fault half of ``repro/serving/faults.py``).
+"""Seeded, deterministic fault injection for the serving engines and the
+artifact load (counterpart of ``repro/serving/faults.py``).
 
 A chaos run must replay exactly, so the injector owns a seeded numpy
 generator and a one-shot arming queue and never reads the clock; the same
@@ -15,8 +15,10 @@ consumed by ``FaultInjector.draw`` once per decode dispatch (see
   * ``stall_tick`` -- a host-side sleep before the dispatch; the watchdog
     must flag it and tokens must not change.
 
-The artifact-load faults (``FlakyIO``, ``corrupt_payload``) wait for the
-artifact read path.
+Artifact-load kinds (``ARTIFACT_FAULT_KINDS``), not drawn per tick:
+``FlakyIO`` is a transient read failure for ``checkpoint.io_fault_hook``
+(the retry loop must absorb it); ``corrupt_payload`` flips bytes in one
+payload file (the sha256 gate must fail the step closed).
 
 CLI: ``repro_torch.launch.serve --chaos "rate=0.01,kinds=nan_logits|
 kv_corrupt,seed=0"``.
@@ -24,6 +26,7 @@ kv_corrupt,seed=0"``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import deque
 from typing import List, Optional, Sequence
 
@@ -36,6 +39,8 @@ TICK_FAULT_KINDS = (
     "kv_corrupt",
     "stall_tick",
 )
+# kinds exercised around artifact load (not drawn per tick)
+ARTIFACT_FAULT_KINDS = ("io_flake", "shard_corrupt")
 
 _DEFAULT_PAYLOAD = {
     "nan_logits": float("nan"),
@@ -147,3 +152,40 @@ class FaultInjector:
         for ev in self.log:
             by_kind[ev.kind] = by_kind.get(ev.kind, 0) + 1
         return {"injected": len(self.log), "by_kind": by_kind}
+
+
+# ---------------------------------------------------------------------------
+# Artifact-load faults.
+# ---------------------------------------------------------------------------
+class FlakyIO:
+    """Transient-IO fault hook for ``checkpoint.io_fault_hook``: raises
+    ``OSError`` on the first ``n_failures`` reads whose file name contains
+    ``match`` (empty matches everything), then passes everything through.
+    ``raised`` counts the injected failures."""
+
+    def __init__(self, n_failures: int, match: str = ""):
+        self.remaining = n_failures
+        self.match = match
+        self.raised = 0
+
+    def __call__(self, path: str) -> None:
+        if self.remaining > 0 and self.match in os.path.basename(path):
+            self.remaining -= 1
+            self.raised += 1
+            raise OSError(f"injected transient IO failure reading {path}")
+
+
+def corrupt_payload(step_dir: str, seed: int = 0) -> str:
+    """Flip bytes inside one payload file of a step directory (sorted file
+    list, seeded choice and offset).  An integrity fault: the sha256 gate
+    must fail the step closed.  Returns the corrupted file's path."""
+    victims = sorted(f for f in os.listdir(step_dir) if f.endswith(".npy"))
+    if not victims:
+        raise ValueError(f"no payload files under {step_dir}")
+    rng = np.random.default_rng(seed)
+    target = os.path.join(step_dir, victims[int(rng.integers(len(victims)))])
+    size = os.path.getsize(target)
+    with open(target, "r+b") as f:
+        f.seek(int(rng.integers(max(1, size))))
+        f.write(b"\xde\xad\xbe\xef")
+    return target

@@ -600,3 +600,34 @@ def test_decode_tick_makes_one_host_sync(dev, monkeypatch, engine):
         eng.step()
     assert eng._tick == tick0 + 3 and calls == ["cpu"] * 3
     assert all(len(r.output) > 0 for r in eng.slot_req)
+
+
+def test_cold_start_from_artifact_on_the_card(dev, tmp_path):
+    """Calibrate and save on the card, cold-start both engines from the
+    artifact onto the card: the same tokens as the in-memory model, through
+    the fused kernels with the plan's static exponents."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import build_model, make_smoke_batch, quantize_and_plan, save_servable
+    from repro_torch.serving import Request, SchedulerConfig, ServingEngine, StagedEngine
+
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-8b", QuantConfig(w_bits=2, group_size=16, mode="ptq")),
+                              flash_decode=True, flash_prefill=True, kv_fmt="kv_int8")
+    api = build_model(cfg, device=dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    calib = [make_smoke_batch(torch.Generator(device=dev).manual_seed(100 + i), cfg, 2, 16) for i in range(2)]
+    qparams, plan, qapi = quantize_and_plan(api, params, calib_batches=calib)
+    assert len(plan.act_exponents) == len(plan.site_paths) == 8
+    save_servable(str(tmp_path), qapi, qparams, plan)
+    for cls, kw in ((ServingEngine, {}), (StagedEngine, dict(sched=SchedulerConfig(prefill_chunk=4)))):
+        outs = []
+        for eng in (cls(qapi, qparams, n_slots=2, max_len=32, **kw),
+                    cls.from_artifact(str(tmp_path), n_slots=2, max_len=32, **kw)):
+            for i, prompt in enumerate([[3, 5, 7], [11, 2, 9, 4, 6]]):
+                eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=6))
+            before = ternary_matmul_fused.launches
+            outs.append({r.uid: r.output for r in eng.run()})
+            assert eng.api.device.type == "cuda" and ternary_matmul_fused.launches > before
+        assert outs[0] == outs[1] and all(len(t) == 6 for t in outs[0].values())

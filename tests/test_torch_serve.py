@@ -10,7 +10,11 @@ import pytest
 from repro import configs as jconfigs
 from repro.configs.base import QuantConfig as JQuantConfig
 from repro.models import build_model as jbuild
+from repro.models import make_smoke_batch as jmake_smoke_batch
 from repro.models import quantize_and_plan as jquantize_and_plan
+from repro.models import save_servable as jsave_servable
+from repro.serving import Request as JRequest
+from repro.serving import ServingEngine as JEngine
 from repro_torch.launch import serve
 
 BASE = ["--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--requests", "8"]
@@ -79,9 +83,7 @@ def test_deadline_and_queue_flags_reach_the_engine(capsys):
 
 
 @pytest.mark.parametrize("flag,value,step", [
-    ("--artifact", "x", "Queue A step 3"), ("--save-artifact", "x", "Queue A steps 3 and 8"),
-    ("--calibrate", "2", "Queue A step 8"), ("--mesh", "dp=2", "Queue A step 10"),
-    ("--compile-cache", "x", "XLA's persistent compilation cache"),
+    ("--mesh", "dp=2", "Queue A step 10"), ("--compile-cache", "x", "XLA's persistent compilation cache"),
 ])
 def test_unported_flags_exit_naming_their_step(capsys, flag, value, step):
     with pytest.raises(SystemExit) as exc:
@@ -102,3 +104,43 @@ def test_plan_json_is_the_reference_plan(capsys, tmp_path):
     want = json.loads(jplan.to_json())
     assert dict(got.pop("sites")) == dict(want.pop("sites"))  # the same sites, in the port's tree order
     assert got == want
+
+
+@pytest.mark.parametrize("engine", ["staged", "lockstep"])
+def test_calibrate_save_then_artifact_print_the_same_tokens(capsys, tmp_path, engine):
+    """Quantize on boot with --calibrate and --save-artifact, then cold-start
+    from the artifact: the same plan, the same tokens, in both engines."""
+    art = str(tmp_path / "art")
+    warm, out_w, printed_w = _serve(capsys, "--engine", engine, "--calibrate", "2", "--save-artifact", art)
+    assert re.search(r"plan: 8 sites, 8 calibrated", out_w)
+    assert f"saved packed artifact to {art}/step_000000000 (serve it with --artifact {art})" in out_w
+    run = serve.main(["--artifact", art, "--device", "cpu", "--requests", "8", "--engine", engine])
+    out_c = capsys.readouterr().out
+    assert re.search(rf"arch=qwen3-8b-smoke cold-started from {art}/step_000000000 in [\d.]+s: [\d.]+ MB packed, "
+                     r"plan: 8 sites, 8 calibrated \(fp32 never materialized\)", out_c)
+    assert {r.uid: r.output for r in run.done} == {r.uid: r.output for r in warm.done}
+    assert len(run.done) == 8 and all(r.status == "finished" and len(r.output) == 8 for r in run.done)
+    assert run.engine.api.ctx.plan.act_exponents == warm.engine.api.ctx.plan.act_exponents
+
+
+def test_reference_artifact_serves_the_reference_tokens(capsys, tmp_path):
+    """An artifact the reference calibrated and wrote, served by the port's
+    launcher (lockstep) with the reference engine's greedy tokens."""
+    cfg = jconfigs.get_smoke("qwen3-8b", JQuantConfig(w_bits=2, group_size=16, mode="ptq", backend="ref"))
+    japi = jbuild(cfg)
+    calib = [jmake_smoke_batch(jax.random.PRNGKey(100 + i), cfg, batch=2, seq=16) for i in range(2)]
+    jq, jplan, jqapi = jquantize_and_plan(japi, japi.init(jax.random.PRNGKey(0)), calib_batches=calib)
+    jsave_servable(str(tmp_path), jqapi, jq, jplan)
+    run = serve.main(["--artifact", str(tmp_path), "--device", "cpu", "--requests", "4", "--engine", "lockstep"])
+    assert "plan: 8 sites, 8 calibrated" in capsys.readouterr().out
+    jeng = JEngine(jqapi, jq, n_slots=4, max_len=64)
+    for i, prompt in enumerate(serve.draw_prompts(4, cfg.vocab)):
+        jeng.submit(JRequest(uid=i, prompt=prompt, max_new_tokens=serve.NEW_TOKENS))
+    assert {r.uid: r.output for r in run.done} == {r.uid: r.output for r in jeng.run()}
+
+
+@pytest.mark.parametrize("argv", [["--device", "cpu"], BASE + ["--artifact", "x"]], ids=["neither", "both"])
+def test_arch_or_artifact_exactly_one(capsys, argv):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(argv)
+    assert exc.value.code != 0 and "exactly one of --arch or --artifact is required" in capsys.readouterr().err
