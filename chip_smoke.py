@@ -94,12 +94,43 @@ Phases, in order; any failure exits non-zero:
                  directory is deleted; a 2-layer full-width
                  quantize_and_plan(init) must equal init_quantized bit for
                  bit
-  9. timings  -- kernel, plain version, library call (a yardstick the port
+  9. families -- the dense siblings at their published widths, ternary
+                 group 64, kv_int8, both flash flags, random seeded weights
+                 quantized on the card: parity first -- qdense at K = 3840
+                 (gemma3's d_model = 7 x 512 + 256: a ragged last k-tile) on
+                 wq, wk and gate at M = 1, 4, 8, 17, 256 and its int8
+                 lm_head at M = 4, and at K = 49152 (qwen1.5-110b's down
+                 projection) at M = 4 and 8, every decode, fused and packed,
+                 0 ulps; flash_attend at head_dim 240 in all three formats
+                 (decode, a 256-token chunk, ragged chunks; global and a
+                 300-token window), 5e-5; flash_attention at hd 240, float32
+                 2e-5 and bf16 one ulp -- then gemma3-12b, all 48 layers
+                 (5 local : 1 global, window 1024), through the StagedEngine
+                 (4 slots, max_len 2048, 256-token chunks, 8 prompts of 1 to
+                 1900 tokens, so the local layers mask); the lockstep
+                 engine on the same prompts at 6 layers (5 local + 1
+                 global; cut from 48 for time: ~1,920 ticks of one
+                 prompt token each took 417 s at 48 layers) beside the
+                 staged engine on that model; its 6-layer float32 twin
+                 (5 local + 1 global) at T 2048, flash against the oracle
+                 within 5e-3; qwen1.5-110b, all 80 layers, seeded non-zero
+                 q / k / v biases, through the StagedEngine on the
+                 launcher's 8 requests (6-token prompts: the GEMV only),
+                 with GEMV launches at K = 49152; and
+                 phi4-mini-3.8b through the launcher, --engine staged and
+                 --engine lockstep.  Each model's load s, peak memory,
+                 tokens/s and launches are logged; it is freed before the
+                 next
+ 10. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
                  (flash: at the bf16 tensor-core peak, the float32 one
                  logged beside it); qdense per site and per layer at M = 4
                  and 256 for every format, mx's int8 decode at group 32
-                 included (fused_qmm_int8_layer, fused_qmm_int8_prefill)
+                 included (fused_qmm_int8_layer, fused_qmm_int8_prefill);
+                 the families' new shapes: a gemma3 ragged-K site (wq) at
+                 M = 4 and 256, the K = 49152 GEMV, flash_attend kv_int8 at
+                 hd 240 (decode, 256-token chunk) and flash_attention at
+                 hd 240
 
 The traced ticks and chunks log device busy time, kernels per call and the
 qdense GEMV's device time and launches per tick.
@@ -109,6 +140,7 @@ The last two lines are the `kernels` JSON and the device JSON.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -485,7 +517,9 @@ def _parity_ragged_flash(dev, gen, errs) -> list:
 def _parity_decode(dev, gen, errs) -> list:
     """Decode at the staged tick's shape with every row at valid = 1 and
     every row at full T, every format: within 5e-5 of plain, two identical
-    calls bit-identical, and one CUDA launch a call (profiler trace)."""
+    calls bit-identical, and one CUDA launch a call (profiler trace; a
+    trace that holds no device event at all, which CUPTI gives now and then
+    on a call that ran, is taken again, up to three traces)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -502,10 +536,13 @@ def _parity_decode(dev, gen, errs) -> list:
             args = _flash_args(_flash_case(fmt, fd, gen, dev, s=1, starts=[fill - 1] * fd["b"], valid=valid))
             first = flash_attend(*args, fmt=fmt)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                second = flash_attend(*args, fmt=fmt)
-                torch.cuda.synchronize()
-            n_launch = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+            for trace in range(1, 4):  # a trace that holds no device event missed the call: trace it again
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    second = flash_attend(*args, fmt=fmt)
+                    torch.cuda.synchronize()
+                n_launch = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+                if n_launch:
+                    break
             want = flash_attend_ref(*args, fmt=fmt)
             torch.cuda.synchronize()
             err = float((first - want).abs().max())
@@ -513,9 +550,11 @@ def _parity_decode(dev, gen, errs) -> list:
             errs[f"flash_attend_{SHORT[fmt]}"] = max(errs[f"flash_attend_{SHORT[fmt]}"], err)
             ok = bool(torch.isfinite(first).all()) and err <= 5e-5 and same and n_launch == 1
             log(f"parity flash {fmt} decode B={fd['b']} T={fd['t']} valid={fill}: max_abs_err={err:.3e} (atol 5e-5), "
-                f"two calls bit-identical {same}, CUDA launches a call {n_launch} (want 1) {'OK' if ok else 'FAIL'}")
+                f"two calls bit-identical {same}, CUDA launches a call {n_launch} (want 1; trace {trace}) "
+                f"{'OK' if ok else 'FAIL'}")
             if not ok:
-                failures.append(f"flash {fmt} decode valid={fill}")
+                failures.append(f"flash {fmt} decode valid={fill}: max_abs_err {err:.3e}, bit-identical {same}, "
+                                f"launches {n_launch} in trace {trace}")
     return failures
 
 
@@ -704,14 +743,14 @@ def _parity_flash_attention(dev, gen, errs) -> tuple:
 # ---------------------------------------------------------------------------
 # 4. main path
 # ---------------------------------------------------------------------------
-def _ptq_cfg(n_layers=None, quant=None, **over):
-    """The full-width PTQ config: ternary group 64 unless ``quant`` (a dict
-    of QuantConfig fields) says otherwise."""
+def _ptq_cfg(n_layers=None, quant=None, arch=ARCH, **over):
+    """The full-width PTQ config of ``arch``: ternary group 64 unless
+    ``quant`` (a dict of QuantConfig fields) says otherwise."""
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
 
     q = dict(dict(w_bits=2, group_size=GROUP, mode="ptq", backend="auto"), **(quant or {}))
-    cfg = configs.get_config(ARCH, QuantConfig(**q))
+    cfg = configs.get_config(arch, QuantConfig(**q))
     cfg = dataclasses.replace(cfg, flash_decode=True, **over)
     return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
 
@@ -1013,16 +1052,16 @@ def phase_staged(dev) -> dict:
 TWIN_STARTS = [0, 77, 300, 333]  # prefill_chunk boundaries, then 4 decode steps
 
 
-def _twin_logits(a, params, toks) -> torch.Tensor:
-    """Last-token logits of each chunk and of 4 decode steps, (7, 2, vocab)."""
-    cache = a.init_cache(2, 512)
+def _twin_logits(a, params, toks, starts=TWIN_STARTS, max_len=512) -> torch.Tensor:
+    """Last-token logits of each chunk and of 4 decode steps, (chunks + 4, 2, vocab)."""
+    cache = a.init_cache(2, max_len)
     steps = []
     with torch.inference_mode():
-        for s0, s1 in zip(TWIN_STARTS, TWIN_STARTS[1:]):
+        for s0, s1 in zip(starts, starts[1:]):
             logits, cache = a.prefill_chunk(params, toks[:, s0:s1], s0, cache)
             steps.append(logits[:, -1].float())
         for i in range(4):
-            pos = TWIN_STARTS[-1] + i
+            pos = starts[-1] + i
             logits, cache = a.decode(params, toks[:, pos:pos + 1], pos, cache)
             steps.append(logits[:, -1].float())
     return torch.stack(steps)
@@ -1471,7 +1510,397 @@ def _quantize_twin(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 9. timings
+# 9. families: the dense siblings at their published widths
+# ---------------------------------------------------------------------------
+GEMMA, QWEN110, PHI4 = "gemma3-12b", "qwen1.5-110b", "phi4-mini-3.8b"
+GEMMA_MAX_LEN = 2048
+# longest first, so the lockstep engine (one prompt token a tick) runs them side by side
+GEMMA_PROMPTS = [1900, 1700, 1300, 1025, 640, 255, 37, 1]
+GEMMA_TWIN_LAYERS = 6  # 5 local + 1 global
+# the lockstep engine takes a prompt one token a tick: ~1,920 ticks for these prompts, 218 ms a tick at 48
+# layers on a slow host (417 s); cut to the 6-layer model, beside a staged run of the same model
+GEMMA_LOCKSTEP_LAYERS = 6
+GEMMA_TWIN_STARTS = [0, 300, 556, 812, 1068, 1324, 1580]  # chunks past the 1024 window, then 4 decode steps
+RAGGED_SITES = [("wq", 3840, 3840, None), ("wk", 3840, 1920, None), ("gate", 3840, 15360, "silu")]  # gemma3
+RAGGED_ROWS = (1, 4, 8, 17, 256)
+RAGGED_LM_HEAD = (3840, 32768)  # gemma3's int8 lm_head (K 3840), 256 column blocks: the int8 loop
+LONG_K = (49152, 8192)  # qwen1.5-110b's down projection
+LONG_K_ROWS = (4, 8, 17)  # M = 8 stages x's rows a few k-tiles at a time; 17: the tile, split
+HD240 = dict(b=4, t=2048, kh=8, g=2, hd=240)  # gemma3: 16 query heads over 8 kv heads
+HD240_DECODE_VALID = [1, 700, 1500, 2048]
+HD240_CHUNK = dict(s=256, start=1300)
+HD240_RAGGED = dict(s=(31, 255), starts=(77, 1600))
+HD240_WINDOW = 300
+ATTN_HD240 = [(2, 64, 64, 240), (3, 64, 128, 240), (64, 1024, 1024, 240)]  # last: 4 sequences x 16 heads
+FAMILY_ROWS = {  # JSON row -> what the families phase counts for its launches
+    "fused_qmm_ternary_ragged": ("gemv", 3840), "fused_qmm_ternary_ragged_prefill": ("tile", 3840),
+    "fused_qmm_ternary_k49152": ("gemv", 49152),
+    "flash_attend_int8_hd240": ("kv_int8/decode", 240), "flash_attend_int8_hd240_prefill": ("kv_int8/prefill", 240),
+    "flash_attention_hd240": ("flash_attention", 240),
+}
+
+
+class _KeyedLaunches:
+    """Launches by route and K (qdense) or by mode and head_dim (flash),
+    counted where the wrappers plan a launch: fused_qmm / packed_qmm plan
+    the GEMV (``gemv_plan``), the tile (``tile_plan``) or the int8 loop
+    (``rows_per_block``) right before they launch it, flash_attend its
+    call (``launch_plan``).  Installed for the families phase only."""
+
+    def __init__(self):
+        from repro_torch.kernels import flash_prefill as fp
+        from repro_torch.kernels import fused_qmm as fq
+        from repro_torch.kernels import packed_qmm as pq
+
+        self.counts: dict = {}
+        self.saved = []
+        for mod in (fq, pq):
+            for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"), ("rows_per_block", "int8 loop")):
+                self._wrap(mod, name, lambda a, route=route: (route, a[1]))
+        self._wrap(fp, "launch_plan", lambda a: (f"{a[0]}/{'decode' if a[2] == 1 else 'prefill'}", a[6]))
+
+    def _wrap(self, mod, name, key):
+        fn = getattr(mod, name)
+
+        def counted(*a, **kw):
+            k = key(a)
+            self.counts[k] = self.counts.get(k, 0) + 1
+            return fn(*a, **kw)
+
+        self.saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+
+    def close(self):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _parity_families(dev, gen, errs) -> list:
+    """The repairs this phase's models need, against the plain versions:
+    qdense at a ragged K and at K = 49152 (0 ulps), flash_attend and
+    flash_attention at head_dim 240."""
+    from repro_torch.kernels.fused_qmm import fused_qmm_ref
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.quant.formats import get_format
+
+    failures = []
+
+    def check(key, what, got, want):
+        torch.cuda.synchronize()
+        ulps, err = _ulps(got, want), float((got - want).abs().max())
+        if key:
+            errs[key] = max(errs.get(key, 0.0), err)
+        ok = bool(torch.isfinite(got).all()) and ulps == 0
+        log(f"parity {what}: max_abs_err={err:.3e} ulps={ulps} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    sites = [(name, k, n, act, RAGGED_ROWS, "fused_qmm_ternary_ragged") for name, k, n, act in RAGGED_SITES]
+    sites.append(("down", *LONG_K, None, LONG_K_ROWS, "fused_qmm_ternary_k49152"))
+    for fmt in TILE_FORMATS:
+        decode = _decode_of(fmt)
+        for name, k, n, act, rows, key in sites:
+            qt = _qsite(k, n, fmt, gen, dev)
+            for i, m in enumerate(rows):
+                x = _rows(m, k, gen, dev, (torch.bfloat16, torch.float32)[i % 2])
+                kw = dict(group=qt.group_size, act=act, act_exponent=(None, -4)[i // 2 % 2])
+                row = (key if m <= 8 else f"{key}_prefill") if fmt == "ternary" else None
+                check(row, f"qdense {name} K={k} N={n} {fmt} M={m} x={str(x.dtype)[6:]} static_e="
+                      f"{kw['act_exponent']} act={act}", _entry(fmt)(x, qt.packed, qt.scale_m, qt.scale_e, **kw),
+                      fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw))
+                if m in (4, 8, 256):
+                    xq, _ = quantize_rows(x)
+                    check(None, f"packed_qmm {name} K={k} N={n} {fmt} M={m}",
+                          get_format(fmt).kernel(xq, qt.packed, qt.scale_m, group=qt.group_size),
+                          packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size))
+            del qt
+            torch.cuda.empty_cache()
+    k, n = RAGGED_LM_HEAD
+    qt = _qsite(k, n, "int8", gen, dev)
+    x = _rows(M_ROWS, k, gen, dev, torch.bfloat16)
+    check(None, f"qdense lm_head K={k} N={n} int8 M={M_ROWS} (the int8 loop)",
+          _entry("int8")(x, qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size),
+          fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode="int8", group=qt.group_size))
+    xq, _ = quantize_rows(x)
+    check(None, f"packed_qmm lm_head K={k} N={n} int8 M={M_ROWS}",
+          get_format("int8").kernel(xq, qt.packed, qt.scale_m, group=qt.group_size),
+          packed_qmm_ref(xq, qt.packed, qt.scale_m, decode="int8", group=qt.group_size))
+    del qt
+    return failures + _parity_hd240(dev, gen, errs)
+
+
+def _parity_hd240(dev, gen, errs) -> list:
+    """flash_attend at head_dim 240 in every format: decode (B 4, T 2048),
+    a 256-token chunk and ragged chunks, global and a 300-token window,
+    5e-5; flash_attention at hd 240, float32 2e-5 and bf16 3e-2 and one
+    ulp, through the kernels API as its users call it."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_prefill import flash_attend, flash_attend_ref
+
+    fs, failures = HD240, []
+    cases = [(f, 1, [v - 1 for v in HD240_DECODE_VALID], HD240_DECODE_VALID) for f in SHORT]
+    cases += [(f, HD240_CHUNK["s"], [HD240_CHUNK["start"]], [HD240_CHUNK["start"] + HD240_CHUNK["s"]]) for f in SHORT]
+    cases += [(f, s, list(HD240_RAGGED["starts"]), [a + s for a in HD240_RAGGED["starts"]])
+              for f in SHORT for s in HD240_RAGGED["s"]]
+    for fmt, s, starts, valid in cases:
+        case = _flash_case(fmt, dict(fs, b=len(starts)), gen, dev, s=s, starts=starts, valid=valid)
+        for window in (None, HD240_WINDOW):
+            if window is not None:
+                case = case[:4] + (torch.tensor([[window]], dtype=torch.int32, device=dev),)
+            args = _flash_args(case)
+            got = flash_attend(*args, fmt=fmt)
+            want = flash_attend_ref(*args, fmt=fmt)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if fmt == "kv_int8":
+                key = f"flash_attend_int8_hd240{'' if s == 1 else '_prefill'}"
+                errs[key] = max(errs.get(key, 0.0), err)
+            ok = bool(torch.isfinite(got).all()) and err <= 5e-5
+            log(f"parity flash {fmt} hd=240 B={len(starts)} S={s} T={fs['t']} start={starts} valid={valid} "
+                f"window={window}: max_abs_err={err:.3e} (atol 5e-5) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash {fmt} hd 240 S={s} window={window}")
+    for shape in ATTN_HD240:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _attn_inputs(shape, dtype, gen, dev)
+            got = kernels.flash_attention(q, k, v)
+            want = flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            errs["flash_attention_hd240"] = max(errs.get("flash_attention_hd240", 0.0), err)
+            ok = got.dtype == dtype and bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype]
+            note = ""
+            if dtype == torch.bfloat16:
+                ulps = _bf16_ulps(got, want)
+                ok = ok and ulps <= 1.0
+                note = f", {ulps:.2f} bf16 ulps (at most 1)"
+            log(f"parity flash_attention BH={shape[0]} S={shape[1]} T={shape[2]} hd=240 {str(dtype)[6:]} causal: "
+                f"max_abs_err={err:.3e} (atol {ATTN_TOL[dtype]}){note} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash_attention hd 240 {shape} {dtype}")
+            del q, k, v
+    return failures
+
+
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _free() -> None:
+    """Drop a model before the next: the engines and model APIs hold
+    reference cycles, so its tensors go only once the collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _run_engine(kind, booted, prompts, *, max_len, new, label, required) -> dict:
+    """One engine over ``prompts`` on the booted model: {uid: tokens};
+    logs its tokens/s, launches and peak memory."""
+    from repro_torch.serving import Request, SchedulerConfig, ServingEngine, StagedEngine
+
+    qparams, _, api = booted
+    kw = dict(n_slots=STAGED_SLOTS, max_len=max_len)
+    if kind == "staged":
+        eng = StagedEngine(api, qparams, sched=SchedulerConfig(prefill_chunk=STAGED_CHUNK, policy="decode"), **kw)
+    else:
+        eng = ServingEngine(api, qparams, **kw)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=new))
+    done = eng.run(max_ticks=20_000)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _read_counts()
+    toks = sum(len(r.output) for r in done)
+    log(f"{label} {kind}: {len(done)} requests, {toks} tokens in {run_s:.2f} s = {toks / run_s:.2f} tokens/s; "
+        f"{eng.counts if kind == 'staged' else ''} peak {_peak_gb():.2f} GB; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    _require_launches(launches, required, f"{label} {kind}")
+    if len(done) != len(prompts) or any(r.status != "finished" or len(r.output) != new for r in done):
+        raise SystemExit(f"{label} {kind}: not every request finished with its tokens")
+    out = {r.uid: r.output for r in done}
+    del eng
+    _free()
+    return out, launches
+
+
+def _compare_engines(label, outs) -> None:
+    total = sum(map(len, outs["staged"].values()))
+    differ = sum(a != b for u in outs["staged"] for a, b in zip(outs["staged"][u], outs["lockstep"][u]))
+    log(f"{label}: staged vs lockstep on the card: {differ} of {total} tokens differ (S > 1 chunks and S == 1 "
+        "steps sum attention in other orders, and the 8-bit activation quantizers turn that into mantissa steps; "
+        "ROADMAP Queue C; the CPU tests hold both engines to the reference's)")
+
+
+def _boot_family(dev, cfg, label):
+    """init_quantized on the card: (booted, load s), logged with its sizes."""
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    booted = _boot(cfg, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.hd()}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}: load {load_s:.2f} s (init_quantized on the card), "
+        f"packed weights {sum(qt.nbytes() for qt in _qtensors(booted[0])) / 1e9:.2f} GB, peak {_peak_gb():.2f} GB")
+    return booted
+
+
+def _family_gemma(dev, totals) -> None:
+    """All 48 layers through the StagedEngine; the lockstep engine on the
+    same prompts at GEMMA_LOCKSTEP_LAYERS, beside the staged engine on
+    that model; the float32 twin."""
+    req = {"staged": ["fused_qmm_ternary", "fused_qmm_ternary_prefill", "fused_qmm_int8", "flash_attend_int8",
+                      "flash_attend_int8_prefill"],
+           "lockstep": ["fused_qmm_ternary", "fused_qmm_int8", "flash_attend_int8"]}
+    gen = torch.Generator().manual_seed(SEED + 20)
+    prompts = None
+    for depth, kinds in ((None, ("staged",)), (GEMMA_LOCKSTEP_LAYERS, ("staged", "lockstep"))):
+        cfg = _ptq_cfg(depth, arch=GEMMA, kv_fmt="kv_int8", flash_prefill=True)
+        label = f"{GEMMA} {cfg.n_layers}L"
+        booted = _boot_family(dev, cfg, label)
+        if prompts is None:
+            prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist() for n in GEMMA_PROMPTS]
+        log(f"{label}: window schedule {_window_counts(cfg)}; prompts {GEMMA_PROMPTS} (+{NEW} new tokens), "
+            f"max_len {GEMMA_MAX_LEN}")
+        outs = {}
+        for kind in kinds:
+            outs[kind], launches = _run_engine(kind, booted, prompts, max_len=GEMMA_MAX_LEN, new=NEW, label=label,
+                                               required=req[kind])
+            _add(totals, launches)
+        if len(outs) == 2:
+            _compare_engines(label, outs)
+        del booted
+        _free()
+    _gemma_twin(dev)
+
+
+def _window_counts(cfg) -> str:
+    from repro_torch.models.transformer import window_schedule
+
+    win = window_schedule(cfg, GEMMA_MAX_LEN).tolist()
+    return f"{sum(w == cfg.sliding_window for w in win)} local (window {cfg.sliding_window}) + " \
+           f"{sum(w != cfg.sliding_window for w in win)} global layers"
+
+
+def _gemma_twin(dev) -> None:
+    """The 6-layer float32 twin (5 local + 1 global layers) at T 2048:
+    prefill chunks up to 1580 then 4 decode steps, so every local layer
+    masks; flash within 5e-3 of the dense oracle, equal argmax."""
+    from repro_torch.models import build_model
+
+    fcfg = dataclasses.replace(_ptq_cfg(GEMMA_TWIN_LAYERS, arch=GEMMA, kv_fmt="kv_int8", flash_prefill=True,
+                                        dtype="float32"), quant=dataclasses.replace(_ptq_cfg().quant, mode="fp"))
+    toks = torch.randint(0, fcfg.vocab, (2, GEMMA_TWIN_STARTS[-1] + 4),
+                         generator=torch.Generator().manual_seed(SEED + 21)).to(dev)
+    fapi = build_model(fcfg, device=dev)
+    fparams = fapi.init(torch.Generator(device=dev).manual_seed(SEED))
+    foracle = build_model(dataclasses.replace(fcfg, flash_decode=False, flash_prefill=False), device=dev)
+    kw = dict(starts=GEMMA_TWIN_STARTS, max_len=GEMMA_MAX_LEN)
+    want = _twin_logits(foracle, fparams, toks, **kw)
+    diff, same = _twin_diff(_twin_logits(fapi, fparams, toks, **kw), want)
+    ok = diff <= 5e-3 and same
+    log(f"twin fp32 {GEMMA} kv_int8 ({GEMMA_TWIN_LAYERS} layers: {_window_counts(fcfg)}; full width, chunks "
+        f"{GEMMA_TWIN_STARTS} + 4 decode steps, T {GEMMA_MAX_LEN}): logits max|flash - oracle| = {diff:.3e} "
+        f"(atol 5e-3; logit scale {float(want.abs().max()):.3e}); argmax equal {same} {'OK' if ok else 'FAIL'}")
+    del fparams, fapi, foracle
+    _free()
+    if not ok:
+        raise SystemExit(f"twin {GEMMA}: the kernel path disagrees with the plain path")
+
+
+def _family_qwen110(dev, totals, keyed) -> None:
+    from repro_torch.launch import serve
+
+    cfg = _ptq_cfg(arch=QWEN110, kv_fmt="kv_int8", flash_prefill=True)
+    qparams, plan, api = _boot_family(dev, cfg, QWEN110)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    for block in qparams["blocks"]:  # seeded non-zero q / k / v biases (init gives zeros), so the epilogue adds them
+        for site in ("wq", "wk", "wv"):
+            b = block["attn"][site]["b"]
+            b.copy_((torch.randn(b.shape, generator=gen, device=dev) * 0.1).to(b.dtype))
+    prompts = serve.draw_prompts(8, cfg.vocab)
+    before = keyed.counts.get(("gemv", LONG_K[0]), 0)
+    _, launches = _run_engine("staged", (qparams, plan, api), prompts, max_len=STAGED_MAX_LEN,
+                              new=serve.NEW_TOKENS, label=QWEN110,
+                              required=["fused_qmm_ternary", "fused_qmm_int8", "flash_attend_int8",
+                                        "flash_attend_int8_prefill"])  # 6-token prompts: no chunk reaches the tile
+    _add(totals, launches)
+    long_k = keyed.counts.get(("gemv", LONG_K[0]), 0) - before
+    log(f"{QWEN110}: GEMV launches at K = {LONG_K[0]} (the down projection) {long_k} "
+        f"{'OK' if long_k > 0 else 'FAIL'}")
+    if long_k <= 0:
+        raise SystemExit(f"{QWEN110}: the K = {LONG_K[0]} down projection never went through the GEMV")
+    del qparams, plan, api
+    _free()
+
+
+def _family_phi4(totals) -> None:
+    from repro_torch.launch import serve
+
+    argv = ["--arch", PHI4] + SERVE_ARGV[2:]
+    outs = {}
+    for engine in ("staged", "lockstep"):
+        _free()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = serve.main(argv + ["--engine", engine])
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        toks = sum(len(r.output) for r in run.done if r.status == "finished")
+        log(f"{PHI4} launcher --engine {engine}: load {run.boot_s:.2f} s (boot: init_quantized, engine), run "
+            f"{run.run_s:.3f} s, {toks} tokens = {toks / run.run_s:.2f} tokens/s; peak {_peak_gb():.2f} GB; launches "
+            f"{({k: n for k, n in launches.items() if n})}")
+        _require_launches(launches, SERVE_REQUIRED[engine], f"{PHI4} {engine}")
+        if len(run.done) != 8 or any(r.status != "finished" or len(r.output) != serve.NEW_TOKENS for r in run.done):
+            raise SystemExit(f"{PHI4} {engine}: not every request finished with its tokens")
+        outs[engine] = {r.uid: r.output for r in run.done}
+        _add(totals, launches)
+        del run
+        _free()
+    _compare_engines(PHI4, outs)
+
+
+def _add(totals, launches) -> None:
+    for k, n in launches.items():
+        totals[k] = totals.get(k, 0) + n
+
+
+def phase_families(dev, errs) -> tuple:
+    """Parity of the repairs, then gemma3-12b, qwen1.5-110b and
+    phi4-mini-3.8b at full width: (launches by JSON row, launches of the
+    families' own rows)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    keyed = _KeyedLaunches()
+    totals: dict = {}
+    try:
+        attn = flash_attention.launches
+        failures = _parity_families(dev, gen, errs)
+        attn = flash_attention.launches - attn
+        if failures:
+            raise SystemExit(f"families parity failed: {failures}")
+        before = dict(keyed.counts)  # the parity calls are not the main path's launches
+        _family_gemma(dev, totals)
+        _family_qwen110(dev, totals, keyed)
+        _family_phi4(totals)
+    finally:
+        keyed.close()
+    own = {row: keyed.counts.get(key, 0) - before.get(key, 0) for row, key in FAMILY_ROWS.items()}
+    own["flash_attention_hd240"] = attn  # the kernels API calls of its parity
+    log(f"families: phase {time.perf_counter() - t0:.1f} s; launches of the new rows {own}")
+    return totals, own
+
+
+# ---------------------------------------------------------------------------
+# 10. timings
 
 # ---------------------------------------------------------------------------
 class _Timer:
@@ -1611,7 +2040,34 @@ def phase_timings(dev) -> dict:
         case = _flash_case(fmt, fp, gen, dev, s=fp["s"], starts=[fp["start"]], valid=[fp["start"] + fp["s"]])
         rows[f"flash_attend_{SHORT[fmt]}_prefill"] = _time_flash(timer, fmt, fp, case, "prefill chunk")
     rows["flash_attention"] = _time_flash_attention(timer, gen, dev)
+    _time_families(timer, gen, dev, rows)
     return rows
+
+
+def _time_families(timer, gen, dev, rows) -> None:
+    """The families' new shapes: gemma3's wq (K 3840, a ragged k-tile) at
+    M = 4 and 256, qwen1.5-110b's down projection (K 49152) at M = 4,
+    flash_attend kv_int8 at hd 240 (the decode tick, a 256-token chunk)
+    and flash_attention at hd 240."""
+    from repro_torch.quant.formats import dequantize_weights
+
+    for name, (k, n), m in (("fused_qmm_ternary_ragged", RAGGED_SITES[0][1:3], M_ROWS),
+                            ("fused_qmm_ternary_ragged_prefill", RAGGED_SITES[0][1:3], PREFILL_ROWS[-1]),
+                            ("fused_qmm_ternary_k49152", LONG_K, M_ROWS)):
+        qt = _qsite(k, n, "ternary", gen, dev)
+        w_bf16 = dequantize_weights(qt).to(torch.bfloat16)
+        rows[name] = r = _time_site(timer, qt, w_bf16, "ternary", "fused", m, None, gen, dev)
+        log(f"time {name} (K={k} N={n} ternary M={m}): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"(by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, torch.matmul bf16 {r['library_ms']:.4f} ms")
+        del qt, w_bf16
+        torch.cuda.empty_cache()
+    case = _flash_case("kv_int8", HD240, gen, dev, s=1, starts=[v - 1 for v in HD240_DECODE_VALID],
+                       valid=HD240_DECODE_VALID)
+    rows["flash_attend_int8_hd240"] = _time_flash(timer, "kv_int8", HD240, case, "decode")
+    start, s = HD240_CHUNK["start"], HD240_CHUNK["s"]
+    case = _flash_case("kv_int8", dict(HD240, b=1), gen, dev, s=s, starts=[start], valid=[start + s])
+    rows["flash_attend_int8_hd240_prefill"] = _time_flash(timer, "kv_int8", HD240, case, "prefill chunk")
+    rows["flash_attention_hd240"] = _time_flash_attention(timer, gen, dev, ATTN_HD240[-1], 16)
 
 
 def _time_split(timer, gen, dev) -> None:
@@ -1682,19 +2138,19 @@ def _time_gemv_choices(timer, gen, dev) -> None:
         del qt
 
 
-def _time_flash_attention(timer, gen, dev) -> dict:
+def _time_flash_attention(timer, gen, dev, shape=ATTN_FULL, heads=ATTN_HEADS) -> dict:
     """The standalone kernel at the parity phase's full-width shape (causal, bf16),
     its plain version and SDPA with is_causal (also top-left aligned); the
     bound from q, k, v read and the output written once, and 4 * hd float32
     operations per live (query, key) pair (the causal half)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
-    bh, s, t, hd = ATTN_FULL
-    q, k, v = _attn_inputs(ATTN_FULL, torch.bfloat16, gen, dev)
+    bh, s, t, hd = shape
+    q, k, v = _attn_inputs(shape, torch.bfloat16, gen, dev)
     ms = timer(lambda: flash_attention(q, k, v))
     plain_ms = timer(lambda: flash_attention_plain(q, k, v), iters=3, warmup=1)
     # SDPA on the (sequences, heads, S, hd) view of the same tensors: its fused kernels take 4-D inputs
-    q4, k4, v4 = (x.view(-1, ATTN_HEADS, x.shape[1], hd) for x in (q, k, v))
+    q4, k4, v4 = (x.view(-1, heads, x.shape[1], hd) for x in (q, k, v))
     lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
     pairs = sum(min(i + 1, t) for i in range(s))  # live keys per query row, summed
     nbytes = 4 * q.numel() * q.element_size()
@@ -1765,7 +2221,7 @@ KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it 
 
 def _kernel_line(errs, launches, rows) -> dict:
     out = []
-    for name in MODES:
+    for name in list(MODES) + list(FAMILY_ROWS):
         source, replaces = next(v for prefix, v in KERNEL_SOURCES.items() if name.startswith(prefix))
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1790,6 +2246,10 @@ def main() -> None:
         launches[k] += v
     for k, v in phase_artifact(dev).items():
         launches[k] += v
+    totals, own = phase_families(dev, errs)
+    for k, v in totals.items():
+        launches[k] += v
+    launches.update(own)
     rows = phase_timings(dev)
     line = _kernel_line(errs, launches, rows)
     if not all(math.isfinite(v) for k in line["kernels"] for v in k.values() if isinstance(v, float)):
@@ -1798,7 +2258,10 @@ def main() -> None:
         f"over one layer's 7 sites (at M={M_ROWS}, and at M={PREFILL_ROWS[-1]} for *_prefill rows; "
         f"fused_qmm_int8_layer and fused_qmm_int8_prefill: mx weights, the int8 decode at group 32; their launches "
         f"are the int8 entry's, lm_head's included), fused_qmm_int8 and packed_qmm_int8 are "
-        f"lm_head at M={M_ROWS}; launches are summed over the kernels API call of the parity phase and the lockstep, staged, format, serve and artifact runs")
+        f"lm_head at M={M_ROWS}; launches are summed over the kernels API call of the parity phase and the lockstep, "
+        f"staged, format, serve, artifact and families runs; the families' rows (*_ragged*, *_k49152, *_hd240) are "
+        f"single sites or calls, their launches those of their K or head_dim in the families runs (flash_attention: "
+        f"its hd 240 parity calls)")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke(arch_id)``.
 
-Only the dense ``qwen3-8b`` is registered so far; the other families of the
-reference come with later slices of the port.
+The dense family is registered: ``qwen3-8b``, ``phi4-mini-3.8b``,
+``qwen1.5-110b`` (qkv biases) and ``gemma3-12b`` (5:1 local:global sliding
+windows, head_dim 240).  The MoE, VLM, SSM, hybrid and encoder-decoder
+families of the reference come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -11,7 +13,12 @@ from typing import Dict, List
 
 from repro_torch.configs.base import ArchConfig, QuantConfig, config_from_dict, config_to_dict
 
-_MODULES: Dict[str, str] = {"qwen3-8b": "qwen3_8b"}
+_MODULES: Dict[str, str] = {
+    "qwen3-8b": "qwen3_8b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "gemma3-12b": "gemma3_12b",
+}
 
 ARCH_IDS: List[str] = list(_MODULES)
 

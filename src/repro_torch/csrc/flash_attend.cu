@@ -25,16 +25,27 @@
 // window) are skipped, and so are, per warp, tiles outside the warp's: they
 // would add exact zeros.
 //
+// Head dims 16, 32, 64, 128 and 240 (gemma3).  At 240 a K / V plane row is
+// 248 bf16 (496 bytes: ldmatrix rows still on distinct banks), the mma
+// steps are 15 (k16) and 30 (n8), and a kv_mx row is 120 bytes, copied in
+// 8-byte pieces (kv_mx at hd 16 too); prefill takes 222,208 bytes of
+// shared memory (kv_bf16), 220,416 (kv_int8), 189,696 (kv_mx): one block
+// an SM.
+//
 // S == 1 (decode): grid (B * Kh, splits), 4 warps, on the CUDA cores (G
 // rows a pair are too few for an mma tile).  Split z covers keys
-// [z * ks, (z + 1) * ks) of the live range; HD / 8 lanes share a key row,
-// each loading its 8 values straight into registers (16 bytes of kv_bf16, 8
-// of kv_int8, 4 of kv_mx) and dotting them with its 8 query values per row.
+// [z * ks, (z + 1) * ks) of the live range; HD / 8 lanes share a key row
+// (rounded up to a power of two: at hd 240, 30 lanes of a warp's 32 and a
+// key a warp step, the last two lanes idle), each loading its 8 values
+// straight into registers (16 bytes of kv_bf16, 8 of kv_int8, 4 of kv_mx)
+// and dotting them with its 8 query values per row.
 // The split writes its (m, l, acc) to the partials, then counts itself in on
 // the pair's arrival counter; the last block of the pair to arrive combines
 // the partials in split order (so the result does not depend on which block
 // is last):  out = sum_z e^(m_z - M) acc_z / max(sum_z e^(m_z - M) l_z, 1e-30),
 // and resets the counter for the next call.  One launch a decode call.
+#include <type_traits>
+
 #include "flash_mma.cuh"
 
 namespace {
@@ -82,7 +93,9 @@ prefill_kernel(const float* __restrict__ q, const void* __restrict__ k, const vo
                const int* __restrict__ valid, const int* __restrict__ window, float* __restrict__ o, Shape sh,
                float scale) {
   using P = Prefill<FMT, HD>;
-  constexpr int kLd = P::kLd, kChunks = P::kRow / 16;  // 16-byte chunks of a cache row
+  constexpr int kCB = P::kRow % 16 ? 8 : 16;  // bytes of a copy: 8 where a row is not whole 16-byte chunks
+  constexpr int kLd = P::kLd, kChunks = P::kRow / kCB;  // copies of a cache row
+  using Chunk = typename std::conditional<kCB == 16, uint4, uint2>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* kvs = reinterpret_cast<__nv_bfloat16*>(smem + P::kQBytes);
@@ -108,13 +121,16 @@ prefill_kernel(const float* __restrict__ q, const void* __restrict__ k, const vo
     const int j0 = tile * kTile;
     for (int c = tid; c < 2 * kTile * kChunks; c += kThreads) {
       const int which = c / (kTile * kChunks), jj = (c / kChunks) % kTile, part = c % kChunks, j = j0 + jj;
-      const char* src = (which ? vc : kc) + cache_row(min(j, sh.T - 1)) * P::kRow + part * 16;
+      const char* src = (which ? vc : kc) + cache_row(min(j, sh.T - 1)) * P::kRow + part * kCB;
       void* dst;
       if constexpr (FMT == kBf16)
         dst = kvs + ((st * 2 + which) * kTile + jj) * kLd + part * 8;
       else
-        dst = raw + ((st * 2 + which) * kTile + jj) * P::kRow + part * 16;
-      flash::cp_async16(dst, src, j < sh.T);
+        dst = raw + ((st * 2 + which) * kTile + jj) * P::kRow + part * kCB;
+      if constexpr (kCB == 16)
+        flash::cp_async16(dst, src, j < sh.T);
+      else
+        flash::cp_async8(dst, src, j < sh.T);
     }
   };
   auto load_exp = [&](int tile) -> int {  // thread tid < 2 kTile: exponent tid % kTile of K (tid < kTile) or V
@@ -176,19 +192,19 @@ prefill_kernel(const float* __restrict__ q, const void* __restrict__ k, const vo
     if constexpr (FMT == kBf16) {
       kp = kvs + stage * 2 * P::kKvPlane;
     } else {  // packed rows -> one bf16 plane each of K and V
-      constexpr int kPer = FMT == kInt8 ? 16 : 32;  // values in 16 bytes
+      constexpr int kPer = FMT == kInt8 ? kCB : 2 * kCB;  // values of a copy
       const unsigned char* src = raw + stage * 2 * kTile * P::kRow;
       const int8_t* ex = es + stage * 2 * kTile;
       for (int c = tid; c < 2 * kTile * kChunks; c += kThreads) {
         const int which = c / (kTile * kChunks), jj = (c / kChunks) % kTile, part = c % kChunks;
-        const uint4 u = *reinterpret_cast<const uint4*>(src + (which * kTile + jj) * P::kRow + part * 16);
+        const Chunk u = *reinterpret_cast<const Chunk*>(src + (which * kTile + jj) * P::kRow + part * kCB);
         __nv_bfloat16* dst = kvs + which * P::kKvPlane + jj * kLd + part * kPer;
         if constexpr (FMT == kInt8) {
           const float sc = flash::exp2i(ex[which * kTile + jj]);
           const int8_t* m = reinterpret_cast<const int8_t*>(&u);
           float x[8];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
+          for (int h = 0; h < kCB / 8; ++h) {
 #pragma unroll
             for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(m[8 * h + i]) * sc;
             flash::store_split8<1>(dst + 8 * h, 0, x);
@@ -198,7 +214,7 @@ prefill_kernel(const float* __restrict__ q, const void* __restrict__ k, const vo
           const uint8_t* m = reinterpret_cast<const uint8_t*>(&u);
           float x[8];
 #pragma unroll
-          for (int h = 0; h < 4; ++h) {
+          for (int h = 0; h < kCB / 4; ++h) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int lo = m[4 * h + i] & 0xF, hi = m[4 * h + i] >> 4;
@@ -317,7 +333,10 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k, const voi
               const int8_t* __restrict__ ke, const int8_t* __restrict__ ve, const int* __restrict__ q_start,
               const int* __restrict__ valid, const int* __restrict__ window, float* __restrict__ part,
               int* __restrict__ counters, float* __restrict__ o, Shape sh, float scale) {
-  constexpr int L = HD / 8, KW = 32 / L;  // lanes a key row, keys a warp step
+  constexpr int L = HD / 8;                                   // lanes holding a key row's values
+  constexpr int LP = L <= 2 ? 2 : L <= 4 ? 4 : L <= 8 ? 8 : L <= 16 ? 16 : 32;  // lanes a key row
+  constexpr int KW = 32 / LP;                                 // keys a warp step
+  static_assert(L <= 32, "a key row is at most a warp");
   constexpr int kSlot = HD + 2;           // partial of one row: m, l, acc[HD]
   extern __shared__ __align__(16) float dsm[];
   float* sc = dsm;                             // [kMaxG][ks]
@@ -326,7 +345,9 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k, const voi
   __shared__ int is_last;
 
   const int pair = blockIdx.x, b = pair / sh.Kh, kh = pair % sh.Kh, z = blockIdx.y, nz = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, sub = lane / L, pt = lane % L;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, sub = lane / LP, pt = lane % LP;
+  const bool idle = pt >= L;           // lanes past a row's values (hd 240: 2 of 32) ...
+  const int part_of = min(pt, L - 1);  // ... load a valid part and add 0
   const int pos = q_start[b], win = window[0];
   const int lo = max(max(pos - win + 1, 0), z * sh.ks);
   const int hi = min(min(min(valid[b], pos + 1), sh.T), (z + 1) * sh.ks);
@@ -345,15 +366,15 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k, const voi
     float qv[kMaxG][8];
 #pragma unroll
     for (int gg = 0; gg < kMaxG; ++gg) {
-      const float* src = q + ((static_cast<size_t>(b) * sh.Kh + kh) * sh.G + g0 + gg) * HD + pt * 8;
+      const float* src = q + ((static_cast<size_t>(b) * sh.Kh + kh) * sh.G + g0 + gg) * HD + part_of * 8;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) qv[gg][i] = gg < ng ? src[i] * scale : 0.0f;
+      for (int i = 0; i < 8; ++i) qv[gg][i] = gg < ng && !idle ? src[i] * scale : 0.0f;
     }
     // scores: the L lanes of a key row each dot 8 values, then sum across
     constexpr int kStep = kWarps * KW;  // keys of one step of the block
     for (int base = lo + warp * KW; base < hi; base += kBatch * kStep) {
       RowBatch<FMT, HD> rb;
-      rb.load(k, ke, base + sub, kStep, hi - 1, pt, rows);
+      rb.load(k, ke, base + sub, kStep, hi - 1, part_of, rows);
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) {
         if (base + i * kStep >= hi) break;  // warp-uniform
@@ -366,10 +387,10 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k, const voi
           float a = 0.0f;
 #pragma unroll
           for (int j = 0; j < 8; ++j) a = fmaf(qv[gg][j], x[j], a);
-          d[gg] = a;
+          d[gg] = idle ? 0.0f : a;
         }
 #pragma unroll
-        for (int off = L / 2; off; off >>= 1)
+        for (int off = LP / 2; off; off >>= 1)
 #pragma unroll
           for (int gg = 0; gg < kMaxG; ++gg) d[gg] += __shfl_xor_sync(0xffffffffu, d[gg], off);
         if (key < hi && pt == 0)
@@ -405,7 +426,7 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k, const voi
       for (int i = 0; i < 8; ++i) acc[gg][i] = 0.0f;
     for (int base = lo + warp * KW; base < hi; base += kBatch * kStep) {
       RowBatch<FMT, HD> rb;
-      rb.load(v, ve, base + sub, kStep, hi - 1, pt, rows);
+      rb.load(v, ve, base + sub, kStep, hi - 1, part_of, rows);
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) {
         const int key = base + i * kStep + sub;
@@ -421,12 +442,12 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k, const voi
       }
     }
 #pragma unroll
-    for (int off = L; off < 32; off <<= 1)  // across the keys of a warp step
+    for (int off = LP; off < 32; off <<= 1)  // across the keys of a warp step
 #pragma unroll
       for (int gg = 0; gg < kMaxG; ++gg)
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[gg][i] += __shfl_xor_sync(0xffffffffu, acc[gg][i], off);
-    if (sub == 0)
+    if (sub == 0 && !idle)
 #pragma unroll
       for (int gg = 0; gg < kMaxG; ++gg)
         if (gg < ng)
@@ -472,9 +493,6 @@ template <int FMT, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ke, const void* ve,
                    const void* q_start, const void* valid, const void* window, void* part, void* counters, void* o,
                    int B, const Shape& sh, float scale, size_t smem, cudaStream_t stream) {
-  if constexpr (FMT == kMx && HD < 32) {
-    return cudaErrorInvalidValue;  // a kv_mx row must hold whole 16-byte chunks
-  } else {
   const int8_t* kex = static_cast<const int8_t*>(ke);
   const int8_t* vex = static_cast<const int8_t*>(ve);
   const int* qs = static_cast<const int*>(q_start);
@@ -501,7 +519,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ke, 
       static_cast<const float*>(q), k, v, kex, vex, qs, vl, win, static_cast<float*>(part),
       static_cast<int*>(counters), static_cast<float*>(o), sh, scale);
   return cudaGetLastError();
-  }
 }
 
 template <int FMT>
@@ -513,6 +530,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* k
     case 32: return launch<FMT, 32>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem, s);
     case 64: return launch<FMT, 64>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem, s);
     case 128: return launch<FMT, 128>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem,
+                                      s);
+    case 240: return launch<FMT, 240>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem,
                                       s);
     default: return cudaErrorInvalidValue;
   }

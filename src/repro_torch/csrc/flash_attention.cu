@@ -15,6 +15,10 @@
 //   float32: K and V are not exact in bf16; each tile lands as float32 and is
 //         split into three planes (all term pairs down to 2^-16 of the
 //         leading product); 4 warps over 32-key tiles, for room.
+// At hd 240 (gemma3) those tiles would take 317,440 (bf16) and 313,344
+// (float32) bytes of shared memory, over the 232,448 a block may have: bf16
+// runs 4 warps over 64-key tiles (222,208 bytes), float32 4 warps over
+// 16-key tiles (204,288).
 // p goes in as three bf16 terms.
 // Scores and the accumulator live in mma fragments; keys k <= q (causal, both
 // counted from 0: top-left aligned) and k < T are live, others -1e30 as in
@@ -184,7 +188,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
 }
 
 // bf16: 8 warps (128 rows) a block over 64-key tiles; float32 (three K and V
-// planes and a float32 staging tile): 4 warps over 32-key tiles.
+// planes and a float32 staging tile): 4 warps over 32-key tiles; hd 240:
+// 4 warps, over 64-key (bf16) or 16-key (float32) tiles.
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, void* o, int BH, int S, int Tk,
                       int causal, float scale, cudaStream_t stream) {
@@ -195,6 +200,7 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, void*
     case 32: return launch<T, 32, W, BK>(q, k, v, o, BH, S, Tk, causal, scale, stream);
     case 64: return launch<T, 64, W, BK>(q, k, v, o, BH, S, Tk, causal, scale, stream);
     case 128: return launch<T, 128, W, BK>(q, k, v, o, BH, S, Tk, causal, scale, stream);
+    case 240: return launch<T, 240, 4, f32 ? 16 : 64>(q, k, v, o, BH, S, Tk, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -64,6 +64,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(n)
                : "memory");
 }
+// the same for 8 bytes (kv_mx rows of hd 240 are 120 bytes: 8-byte aligned only)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool pred) {
+  const int n = pred ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

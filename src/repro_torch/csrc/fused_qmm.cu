@@ -42,13 +42,14 @@ quantize_pass_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __r
 extern "C" int fused_qmm_launch(int x_is_bf16, int decode, const void* x, const void* w, const void* scale_m,
                                 const void* scale_e, const void* bias, void* out, int M,
                                 int K, int N, int group, int bk, int act, int act_bits, int has_static, int static_e,
-                                int tps, int splits, int wn, int cpp, int items, int grid_x, unsigned lut0,
-                                unsigned lut1, unsigned lut2, unsigned lut3, size_t smem, void* stream) {
+                                int tps, int splits, int wn, int cpp, int items, int grid_x, int tpc, int pull,
+                                unsigned lut0, unsigned lut1, unsigned lut2, unsigned lut3, size_t smem,
+                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const qmm::gemv::Args a{x, w, static_cast<const int8_t*>(scale_m), static_cast<const int*>(scale_e),
                           static_cast<const float*>(bias), static_cast<float*>(out), M, K, N, group, bk, act,
                           act_bits, has_static, static_e,
-                          tps, splits, wn, cpp, items, make_uint4(lut0, lut1, lut2, lut3)};
+                          tps, splits, wn, cpp, items, tpc, pull, make_uint4(lut0, lut1, lut2, lut3)};
   return static_cast<int>(x_is_bf16 ? qmm::gemv::launch_any<__nv_bfloat16>(decode, a, grid_x, smem, s)
                                     : qmm::gemv::launch_any<float>(decode, a, grid_x, smem, s));
 }

@@ -21,10 +21,10 @@
 // M <= 8: the GEMV over the wrapper's plan (see fused_qmm.cu).
 extern "C" int packed_qmm_launch(int decode, const void* xq, const void* w, const void* scale_m, void* out, int M,
                                  int K, int N, int group, int bk, int tps, int splits, int wn,
-                                 int cpp, int items, int grid_x, unsigned lut0, unsigned lut1, unsigned lut2,
-                                 unsigned lut3, size_t smem, void* stream) {
+                                 int cpp, int items, int grid_x, int tpc, int pull, unsigned lut0, unsigned lut1,
+                                 unsigned lut2, unsigned lut3, size_t smem, void* stream) {
   const qmm::gemv::Args a{xq, w, static_cast<const int8_t*>(scale_m), nullptr, nullptr, static_cast<float*>(out),
-                          M, K, N, group, bk, 0, 8, 0, 0, tps, splits, wn, cpp, items,
+                          M, K, N, group, bk, 0, 8, 0, 0, tps, splits, wn, cpp, items, tpc, pull,
                           make_uint4(lut0, lut1, lut2, lut3)};
   return static_cast<int>(
       qmm::gemv::launch_any<int8_t>(decode, a, grid_x, smem, static_cast<cudaStream_t>(stream)));

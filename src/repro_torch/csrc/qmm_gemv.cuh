@@ -50,14 +50,25 @@
 //   The k-splits of an item (blockIdx.y) are one thread block cluster:
 //   each stores its tile sums into block 0's shared memory (distributed
 //   shared memory), and after a cluster barrier block 0 adds them in tile
-//   order -- one launch, no scratch in device memory.  Then
+//   order -- one launch, no scratch in device memory.  Where block 0
+//   cannot hold every split's tile sums (K = 49152: 96 tiles x M x 32 x 4
+//   bytes; the plan's `pull`), each split leaves them in its own piece
+//   slots and block 0 reads them in split and tile order, with one more
+//   cluster barrier before the blocks move on.  Then
 //   x 2**(scale_e + e), + bias, activation (fused), or the raw sums
 //   (packed).
+// - Any K that is a multiple of the cluster: the k-tiles start at 0 and the
+//   last one is ragged (gemma3's 3840 = 7 x 512 + 256), so its piece holds
+//   fewer clusters (whole-tile pieces) or the tile fewer pieces (single
+//   clusters); the float order is the same tile order.
 // - The prologue (fused): each split reads only its k range of the M rows;
 //   the splits exchange their row maxima (and NaN flags) through
 //   distributed shared memory for the exponent over the full K, then
 //   quantize their range (read again from L1) into shared memory; packed
-//   blocks copy their range of the int8 rows.
+//   blocks copy their range of the int8 rows.  Where a block's whole range
+//   does not fit (K = 49152 at M = 8: qwen1.5-110b's down projection), the
+//   plan's `tpc` k-tiles of x are staged at a time, again for every item,
+//   between two block barriers.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -103,23 +114,27 @@ struct Args {
   const float* bias;    // (N) or nullptr
   float* out;           // (M, N)
   int M, K, N, group, bk, act, act_bits, has_static, static_e;
-  int tps, splits, wn, cpp, items;  // the plan: k-tiles a split, splits (a cluster), strips an item,
-                                    // clusters a piece, items
+  int tps, splits, wn, cpp, items, tpc, pull;  // the plan: k-tiles a split, splits (a cluster), strips an
+                                               // item, clusters a piece, items, k-tiles of x staged at a
+                                               // time, block 0 reads the splits' tile sums
   uint4 lut;
 };
 
 __host__ __device__ inline int x_stride(int krange) { return ((krange + 127) & ~127) + 16; }
 
+__host__ __device__ inline int x_range(const Args& a) { return min(a.tpc * a.bk, a.K); }  // k of x staged at once
+
 // Dynamic shared memory of a block: the warps' rings (weights, scale
-// words), the int8 rows of its k range, the piece slots of one item and,
-// with k-splits, the item's k-tile sums of every split (block 0's are read).
+// words), the int8 rows of `tpc` k-tiles of its k range, the piece slots
+// of one item and, with k-splits that push, the item's k-tile sums of
+// every split (block 0's are read).
 template <int V>
 __host__ __device__ inline size_t smem_bytes(const Args& a) {
   using P = Map<V>;
-  const int ppt = a.bk / a.group / a.cpp, nk = a.K / a.bk;
+  const int ppt = a.bk / a.group / a.cpp, nk = (a.K + a.bk - 1) / a.bk;
   return static_cast<size_t>(kWarps) * P::kRing * 32 * (P::kLaneBytes + 4) +
-         static_cast<size_t>(a.M) * x_stride(a.tps * a.bk) +
-         static_cast<size_t>(a.tps * ppt + (a.splits > 1 ? nk : 0)) * a.M * a.wn * kStrip * 4;
+         static_cast<size_t>(a.M) * x_stride(x_range(a)) +
+         static_cast<size_t>(a.tps * ppt + (a.splits > 1 && !a.pull ? nk : 0)) * a.M * a.wn * kStrip * 4;
 }
 
 // Eight consecutive x elements, widened to float.
@@ -181,10 +196,9 @@ __device__ __forceinline__ void decode(const uint4 (&src)[Map<V>::kLaneBytes / 1
   }
 }
 
-// 0 + v[0] + v[1] + ... + v[count - 1], added in that order, v[i] at p + i * stride
-// (shared memory, this block's or block 0's); eight loads in flight at a time.
-__device__ __forceinline__ float sum_in_order(const float* p, size_t stride, int count) {
-  float o = 0.0f;
+// o + v[0] + v[1] + ... + v[count - 1], added in that order, v[i] at p + i * stride
+// (shared memory, this block's or another split's); eight loads in flight at a time.
+__device__ __forceinline__ float sum_in_order(const float* p, size_t stride, int count, float o = 0.0f) {
   for (int i0 = 0; i0 < count; i0 += 8) {
     float v[8];
 #pragma unroll
@@ -221,23 +235,25 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gemv_kernel(const Args
   const cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int M = a.M, K = a.K, N = a.N, G = a.group, bk = a.bk;
-  const int nk = K / bk, ppt = bk / G / a.cpp;
+  const int nk = (K + bk - 1) / bk, ppt = bk / G / a.cpp;
   const int z = blockIdx.y, t0 = z * a.tps, tiles = min(a.tps, nk - t0);
-  const int kb = t0 * bk, krange = tiles * bk, xstride = x_stride(a.tps * bk);
-  const int pps = tiles * ppt;  // pieces of a strip in this block
+  const int kb = t0 * bk, krange = min(tiles * bk, K - kb), xstride = x_stride(x_range(a));
+  const int pps = (krange + a.cpp * G - 1) / (a.cpp * G);  // pieces of a strip in this block (ragged: fewer)
+  const int xk = a.tpc * bk, nch = (tiles + a.tpc - 1) / a.tpc;  // x staged xk at a time, in nch chunks
   const int wn = a.wn, wk = kWarps / wn, wsub = warp % wn, wk0 = warp / wn, bn = wn * kStrip;
   const int spc = G / kSK;  // steps a cluster
   unsigned char* ring_w = smem + warp * (kRing * 32 * P::kLaneBytes);
   int* ring_s = reinterpret_cast<int*>(smem + kWarps * kRing * 32 * P::kLaneBytes) + warp * kRing * 32;
   int8_t* xs = reinterpret_cast<int8_t*>(smem + kWarps * kRing * 32 * (P::kLaneBytes + 4));
-  float* slots = reinterpret_cast<float*>(xs + M * xstride);
-  float* tsum = slots + static_cast<size_t>(a.tps) * ppt * M * bn;  // k-splits: [tile][row][column]
+  float* slots = reinterpret_cast<float*>(xs + M * xstride);  // [piece][row][column]; pulled tile sums: [tile][..]
+  float* tsum = slots + static_cast<size_t>(a.tps) * ppt * M * bn;  // pushed k-split sums: [tile][row][column]
   auto piece_k = [&](int piece) { return kb + (piece / ppt) * bk + (piece % ppt) * a.cpp * G; };
+  auto piece_cl = [&](int k) { return min(a.cpp, (K - k) / G); };  // clusters of the piece at k (ragged: fewer)
 
   // The load cursor walks this warp's steps in the order they are used:
   // items, then its pieces (wk0, wk0 + wk, ...), clusters, steps.  Within a
   // piece the lane's word and scale pointers advance by a fixed stride.
-  int li = blockIdx.x, lp = wk0, lc = 0, ls = 0, issued = 0;
+  int li = blockIdx.x, lp = wk0, lc = 0, lcl = 0, ls = 0, issued = 0;
   bool lvalid = li < a.items && wk0 < pps, lok = false;
   const unsigned char* lw = nullptr;  // the lane's first weight row of the next step
   const int8_t* lsm = nullptr;
@@ -246,6 +262,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gemv_kernel(const Args
   auto seek = [&]() {  // the first step of piece lp of item li
     const int col = (li * wn + wsub) * kStrip + 4 * g, k = piece_k(lp);
     lok = col < N;
+    lcl = piece_cl(k);
     const int row = P::kDec == kInt8 ? k + (kSK / 4) * t : k / P::kWordK + t / P::kShare;  // int8: k-rows
     lw = static_cast<const unsigned char*>(a.w) + row * row_bytes + static_cast<size_t>(col) * kElem;
     lsm = a.sm + static_cast<size_t>(k / G) * N + col;
@@ -266,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gemv_kernel(const Args
       if (++ls == spc) {
         ls = 0;
         lsm += N;
-        if (++lc == a.cpp) {
+        if (++lc == lcl) {
           lc = 0;
           lp += wk;
           if (lp >= pps) lp = wk0, li += gridDim.x, lvalid = li < a.items;
@@ -339,32 +356,40 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gemv_kernel(const Args
       }
     }
     __syncthreads();
-    const int n8 = krange / 8;
-#pragma unroll 4
-    for (int i = tid; i < M * n8; i += kThreads) {
-      const int r = i / n8, k8 = (i - r * n8) * 8;
-      float v[8];
-      load8(x + static_cast<size_t>(r) * K + kb + k8, v);
-      const float sc = exp2i_f(-e_sh[r]);
-      unsigned lo = 0, hi = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        lo |= (static_cast<unsigned>(quantize_value(v[j], sc, qmax)) & 0xFFu) << (8 * j);
-        hi |= (static_cast<unsigned>(quantize_value(v[4 + j], sc, qmax)) & 0xFFu) << (8 * j);
-      }
-      store8<P::kPerm>(xs + r * xstride + k8, lo, hi);
-    }
-  } else {
-    const int8_t* xq = static_cast<const int8_t*>(a.x);
-    const int n16 = krange / 16;
-#pragma unroll 4
-    for (int i = tid; i < M * n16; i += kThreads) {
-      const int r = i / n16, k16 = (i - r * n16) * 16;
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(xq + static_cast<size_t>(r) * K + kb + k16));
-      store8<P::kPerm>(xs + r * xstride + k16, v.x, v.y);
-      store8<P::kPerm>(xs + r * xstride + k16 + 8, v.z, v.w);
-    }
   }
+  // k [kb + c0, kb + c0 + len) of the M rows -> xs from 0: quantized (fused) or copied
+  auto stage = [&](int c0, int len) {
+    if constexpr (kFused) {
+      const T* x = static_cast<const T*>(a.x);
+      const float qmax = static_cast<float>((1 << (a.act_bits - 1)) - 1);
+      const int n8 = len / 8;
+#pragma unroll 4
+      for (int i = tid; i < M * n8; i += kThreads) {
+        const int r = i / n8, k8 = (i - r * n8) * 8;
+        float v[8];
+        load8(x + static_cast<size_t>(r) * K + kb + c0 + k8, v);
+        const float sc = exp2i_f(-e_sh[r]);
+        unsigned lo = 0, hi = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          lo |= (static_cast<unsigned>(quantize_value(v[j], sc, qmax)) & 0xFFu) << (8 * j);
+          hi |= (static_cast<unsigned>(quantize_value(v[4 + j], sc, qmax)) & 0xFFu) << (8 * j);
+        }
+        store8<P::kPerm>(xs + r * xstride + k8, lo, hi);
+      }
+    } else {
+      const int8_t* xq = static_cast<const int8_t*>(a.x);
+      const int n16 = len / 16;
+#pragma unroll 4
+      for (int i = tid; i < M * n16; i += kThreads) {
+        const int r = i / n16, k16 = (i - r * n16) * 16;
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(xq + static_cast<size_t>(r) * K + kb + c0 + k16));
+        store8<P::kPerm>(xs + r * xstride + k16, v.x, v.y);
+        store8<P::kPerm>(xs + r * xstride + k16 + 8, v.z, v.w);
+      }
+    }
+  };
+  if (nch == 1) stage(0, krange);
   if (clustered && (!kFused || a.has_static)) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   __syncthreads();
 
@@ -372,116 +397,135 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gemv_kernel(const Args
   const int8_t* xrow = xs + min(g, M - 1) * xstride + kRegs * 4 * t;  // this lane's B bytes of a step at + its k
   int consumed = 0;
   for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
-    for (int piece = wk0; piece < pps; piece += wk) {
-      const int8_t* xp = xrow + piece_k(piece) - kb;  // the lane's B bytes of the piece's first step
-      float acc[2][4];
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[jp][e] = 0.0f;
-      for (int cl = 0; cl < a.cpp; ++cl) {
-        int c[2][4];
+    int piece = wk0;
+    for (int ch = 0; ch < nch; ++ch) {
+      if (nch > 1) {  // this chunk of x, once every warp is done with the last one
+        __syncthreads();
+        stage(ch * xk, min(xk, krange - ch * xk));
+        __syncthreads();
+      }
+      for (const int p_end = min((ch + 1) * a.tpc * ppt, pps); piece < p_end; piece += wk) {
+        const int8_t* xp = xrow + piece_k(piece) - kb - ch * xk;  // the lane's B bytes of the piece's first step
+        const int ncl = piece_cl(piece_k(piece));
+        float acc[2][4];
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) c[jp][e] = kMagicBits;
-        unsigned smc = 0;
-        for (int st = 0; st < spc; ++st) {
-          // this step's bytes out of shared memory, the copy into the slot
-          // freed one step ago, then the math
-          wait_group<kRing - 2>();
-          const int slot = consumed & (kRing - 1);
-          if (st == 0) smc = static_cast<unsigned>(ring_s[slot * 32 + lane]);
-          uint4 w4[P::kLaneBytes / 16];
+          for (int e = 0; e < 4; ++e) acc[jp][e] = 0.0f;
+        for (int cl = 0; cl < ncl; ++cl) {
+          int c[2][4];
 #pragma unroll
-          for (int j = 0; j < P::kLaneBytes / 16; ++j)
-            w4[j] = reinterpret_cast<const uint4*>(ring_w + (slot * 32 + lane) * P::kLaneBytes)[j];
-          uint32_t X[kRegs];
-          if constexpr (kRegs == 4) {
-            const uint4 v = g < M ? *reinterpret_cast<const uint4*>(xp) : make_uint4(0, 0, 0, 0);
-            X[0] = v.x, X[1] = v.y, X[2] = v.z, X[3] = v.w;
-          } else if constexpr (kRegs == 2) {
-            const uint2 v = g < M ? *reinterpret_cast<const uint2*>(xp) : make_uint2(0, 0);
-            X[0] = v.x, X[1] = v.y;
-          } else {
-            X[0] = g < M ? *reinterpret_cast<const uint32_t*>(xp) : 0u;
-          }
-          ++consumed;
-          xp += kSK;
-          issue();  // into the slot used one step ago
-          uint32_t A[4][kRegs];
-          decode<V>(w4, t, a.lut, A);
+          for (int jp = 0; jp < 2; ++jp)
 #pragma unroll
-          for (int jp = 0; jp < 2; ++jp) {  // mma rows g, g + 8: columns 4g + 2jp, 4g + 2jp + 1
-            if constexpr (kSK == 16) {
-              mma_k16(c[jp], A[2 * jp][0], A[2 * jp + 1][0], X[0]);
+            for (int e = 0; e < 4; ++e) c[jp][e] = kMagicBits;
+          unsigned smc = 0;
+          for (int st = 0; st < spc; ++st) {
+            // this step's bytes out of shared memory, the copy into the slot
+            // freed one step ago, then the math
+            wait_group<kRing - 2>();
+            const int slot = consumed & (kRing - 1);
+            if (st == 0) smc = static_cast<unsigned>(ring_s[slot * 32 + lane]);
+            uint4 w4[P::kLaneBytes / 16];
+#pragma unroll
+            for (int j = 0; j < P::kLaneBytes / 16; ++j)
+              w4[j] = reinterpret_cast<const uint4*>(ring_w + (slot * 32 + lane) * P::kLaneBytes)[j];
+            uint32_t X[kRegs];
+            if constexpr (kRegs == 4) {
+              const uint4 v = g < M ? *reinterpret_cast<const uint4*>(xp) : make_uint4(0, 0, 0, 0);
+              X[0] = v.x, X[1] = v.y, X[2] = v.z, X[3] = v.w;
+            } else if constexpr (kRegs == 2) {
+              const uint2 v = g < M ? *reinterpret_cast<const uint2*>(xp) : make_uint2(0, 0);
+              X[0] = v.x, X[1] = v.y;
             } else {
+              X[0] = g < M ? *reinterpret_cast<const uint32_t*>(xp) : 0u;
+            }
+            ++consumed;
+            xp += kSK;
+            issue();  // into the slot used one step ago
+            uint32_t A[4][kRegs];
+            decode<V>(w4, t, a.lut, A);
 #pragma unroll
-              for (int s = 0; s < kRegs / 2; ++s) {
-                const uint32_t af[4] = {A[2 * jp][2 * s], A[2 * jp + 1][2 * s], A[2 * jp][2 * s + 1],
-                                        A[2 * jp + 1][2 * s + 1]};
-                mma_k32(c[jp], af, X[2 * s], X[2 * s + 1]);
+            for (int jp = 0; jp < 2; ++jp) {  // mma rows g, g + 8: columns 4g + 2jp, 4g + 2jp + 1
+              if constexpr (kSK == 16) {
+                mma_k16(c[jp], A[2 * jp][0], A[2 * jp + 1][0], X[0]);
+              } else {
+#pragma unroll
+                for (int s = 0; s < kRegs / 2; ++s) {
+                  const uint32_t af[4] = {A[2 * jp][2 * s], A[2 * jp + 1][2 * s], A[2 * jp][2 * s + 1],
+                                          A[2 * jp + 1][2 * s + 1]};
+                  mma_k32(c[jp], af, X[2 * s], X[2 * s + 1]);
+                }
               }
             }
           }
-        }
-        // the cluster closes: RN(dot * sm) from the magic-number fragment, into the piece sum
-        float f[4], nf[4];
+          // the cluster closes: RN(dot * sm) from the magic-number fragment, into the piece sum
+          float f[4], nf[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          f[q] = static_cast<float>(static_cast<int8_t>(smc >> (8 * q)));
-          if constexpr (P::kDec == kInt4) f[q] = __fmul_rn(f[q], 0.0625f);  // the dot is 16 x the fields
-          nf[q] = __fmul_rn(-kMagic, f[q]);  // exact: f has at most 8 significant bits
-        }
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int q = 2 * jp + (e >> 1);
-            acc[jp][e] = __fadd_rn(acc[jp][e], __fmaf_rn(__int_as_float(c[jp][e]), f[q], nf[q]));
+          for (int q = 0; q < 4; ++q) {
+            f[q] = static_cast<float>(static_cast<int8_t>(smc >> (8 * q)));
+            if constexpr (P::kDec == kInt4) f[q] = __fmul_rn(f[q], 0.0625f);  // the dot is 16 x the fields
+            nf[q] = __fmul_rn(-kMagic, f[q]);  // exact: f has at most 8 significant bits
           }
-      }
-      // the piece sum -> its slot: C element e of lane (g, t) is column 4g + 2jp + (e >> 1), row 2t + (e & 1)
-      float* sp = slots + static_cast<size_t>(piece) * M * bn + wsub * kStrip + 4 * g;
 #pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        if (2 * t < M) *reinterpret_cast<float2*>(sp + (2 * t) * bn + 2 * jp) = make_float2(acc[jp][0], acc[jp][2]);
-        if (2 * t + 1 < M)
-          *reinterpret_cast<float2*>(sp + (2 * t + 1) * bn + 2 * jp) = make_float2(acc[jp][1], acc[jp][3]);
+          for (int jp = 0; jp < 2; ++jp)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = 2 * jp + (e >> 1);
+              acc[jp][e] = __fadd_rn(acc[jp][e], __fmaf_rn(__int_as_float(c[jp][e]), f[q], nf[q]));
+            }
+        }
+        // the piece sum -> its slot: C element e of lane (g, t) is column 4g + 2jp + (e >> 1), row 2t + (e & 1)
+        float* sp = slots + static_cast<size_t>(piece) * M * bn + wsub * kStrip + 4 * g;
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          if (2 * t < M) *reinterpret_cast<float2*>(sp + (2 * t) * bn + 2 * jp) = make_float2(acc[jp][0], acc[jp][2]);
+          if (2 * t + 1 < M)
+            *reinterpret_cast<float2*>(sp + (2 * t + 1) * bn + 2 * jp) = make_float2(acc[jp][1], acc[jp][3]);
+        }
       }
     }
     __syncthreads();
 
-    // one thread an output: the slots of each k-tile in order, the tiles in
-    // order.  A k-split stores its tile sums into block 0's shared memory
-    // (distributed shared memory), and block 0 adds all of them in tile
-    // order after the cluster barrier.
-    float* tbuf = clustered ? cluster.map_shared_rank(tsum, 0) : tsum;
+    // one thread an output: the slots of each k-tile in order (a ragged
+    // tile has fewer), the tiles in order.  A k-split stores its tile sums
+    // into block 0's shared memory, or with `pull` leaves them in its own
+    // slots (tile tl over slot tl: this thread read that one already), and
+    // block 0 adds all of them in tile order after the cluster barrier.
+    float* tbuf = clustered && !a.pull ? cluster.map_shared_rank(tsum, 0) : tsum;
     for (int i = tid; i < M * bn; i += kThreads) {
       const int r = i / bn, cc = i - r * bn, n = item * bn + cc;
       if (n >= N) continue;
       float run = 0.0f;
       for (int tl = 0; tl < tiles; ++tl) {
         const float ts = sum_in_order(slots + (static_cast<size_t>(tl * ppt) * M + r) * bn + cc,
-                                      static_cast<size_t>(M) * bn, ppt);
+                                      static_cast<size_t>(M) * bn, min(ppt, pps - tl * ppt));
         if (!clustered)
           run = __fadd_rn(run, ts);
+        else if (a.pull)
+          slots[(static_cast<size_t>(tl) * M + r) * bn + cc] = ts;
         else
           tbuf[(static_cast<size_t>(t0 + tl) * M + r) * bn + cc] = ts;
       }
       if (!clustered) a.out[static_cast<size_t>(r) * N + n] = finish<kFused>(a, run, e_sh[r], n, se);
     }
     if (clustered) {
-      cluster.sync();  // every split's tile sums are in block 0's shared memory
+      cluster.sync();  // every split's tile sums are in place
       if (z == 0) {
         for (int i = tid; i < M * bn; i += kThreads) {
           const int r = i / bn, cc = i - r * bn, n = item * bn + cc;
           if (n >= N) continue;
-          const float run = sum_in_order(tbuf + static_cast<size_t>(r) * bn + cc, static_cast<size_t>(M) * bn, nk);
+          const size_t at = static_cast<size_t>(r) * bn + cc, stride = static_cast<size_t>(M) * bn;
+          float run = 0.0f;
+          if (a.pull)
+            for (int zz = 0; zz < a.splits; ++zz)
+              run = sum_in_order(cluster.map_shared_rank(slots, zz) + at, stride, min(a.tps, nk - zz * a.tps), run);
+          else
+            run = sum_in_order(tbuf + at, stride, nk);
           a.out[static_cast<size_t>(r) * N + n] = finish<kFused>(a, run, e_sh[r], n, se);
         }
       }
-      if (item + static_cast<int>(gridDim.x) < a.items) cluster.sync();  // block 0 has read them
+      // block 0 has read them: the slots (pull) or its buffer may be refilled, and (pull) the blocks may exit
+      if (a.pull || item + static_cast<int>(gridDim.x) < a.items) cluster.sync();
     }
     __syncthreads();  // the slots are free for the next item
   }

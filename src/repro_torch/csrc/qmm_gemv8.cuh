@@ -12,7 +12,9 @@
 // columns (128 contiguous bytes a warp and row), kChunk units in flight a
 // lane, transposed in registers for __dp4a; per cluster an int32 dot, one
 // multiply by the scale mantissa, the cluster sums added in order into the
-// tile's sum (shared memory), the tile sums in tile order.
+// tile's sum (shared memory), the tile sums in tile order.  K is any
+// multiple of the cluster: the last k-tile may be ragged (gemma3's lm_head,
+// K = 3840 = 7 x 512 + 256) and holds the units that are left.
 #pragma once
 
 #include <type_traits>
@@ -39,8 +41,10 @@ struct Smem {
   int8_t* sm;
 };
 
+__host__ __device__ inline int n_tiles(int K, int bk) { return (K + bk - 1) / bk; }
+
 __host__ __device__ inline size_t smem_bytes(int rows, int K, int group, int bk) {
-  return static_cast<size_t>(rows) * K + 4 * kRows + static_cast<size_t>(K / bk) * rows * kBn * 4 +
+  return static_cast<size_t>(rows) * K + 4 * kRows + static_cast<size_t>(n_tiles(K, bk)) * rows * kBn * 4 +
          static_cast<size_t>(K / group) * kBn;
 }
 
@@ -49,7 +53,7 @@ __device__ __forceinline__ Smem carve(unsigned char* smem, int rows_alloc, int K
   s.xq = reinterpret_cast<int8_t*>(smem);
   s.e = reinterpret_cast<float*>(smem + rows_alloc * K);
   s.part = s.e + kRows;
-  s.sm = reinterpret_cast<int8_t*>(s.part + (K / bk) * rows_alloc * kBn);
+  s.sm = reinterpret_cast<int8_t*>(s.part + n_tiles(K, bk) * rows_alloc * kBn);
   return s;
 }
 
@@ -59,8 +63,9 @@ __device__ __forceinline__ Smem carve(unsigned char* smem, int rows_alloc, int K
 __device__ __forceinline__ void tile_sums(const Smem& s, const int8_t* __restrict__ w, int rows, int K, int N,
                                           int group, int bk, int col0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ntiles = K / bk, per_cluster = group / 4, units = bk / 4;
+  const int ntiles = n_tiles(K, bk), per_cluster = group / 4;
   for (int t = warp; t < ntiles; t += kWarps) {
+    const int units = min(bk, K - t * bk) / 4;  // a ragged last tile: fewer
     float acc[kRows][kCpt];
     int dot[kRows][kCpt];
 #pragma unroll
@@ -227,7 +232,7 @@ gemv8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w, const int8_t
     const int r = i / kBn, c = i % kBn, col = col0 + c;
     if (col >= N) continue;
     float o = 0.0f;
-    for (int t = 0; t < K / bk; ++t) o = __fadd_rn(o, s.part[(t * rows + r) * kBn + c]);
+    for (int t = 0; t < n_tiles(K, bk); ++t) o = __fadd_rn(o, s.part[(t * rows + r) * kBn + c]);
     if constexpr (kFused) {
       o = __fmul_rn(o, exp2i_f(__fadd_rn(se, s.e[r])));
       if (bias != nullptr) o = __fadd_rn(o, bias[col]);

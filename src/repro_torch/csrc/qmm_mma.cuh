@@ -30,7 +30,10 @@
 // per-thread loop has a compile-time trip count (a runtime bound compiles
 // into a generic loop several times the stage's size), k-tiles end on
 // stage boundaries (no per-cluster division), and a warp's 64 x 32 tile
-// spreads it over 32 mma a stage.  What remains: the phases of a stage
+// spreads it over 32 mma a stage.  K is any multiple of the cluster: a
+// ragged last k-tile (gemma3's 3840 = 7 x 512 + 256) ends on the stage
+// that holds K, whose copies past K are zero-filled -- x's zero rows make
+// those clusters' dots 0, and RN(0 * 0) added to a sum leaves it as it is.  What remains: the phases of a stage
 // (ldmatrix and mma, conversions, decode, copies) run one after another
 // between the block's barriers (PERF.md, the qdense tile).
 //
@@ -190,12 +193,16 @@ struct Loader {
   int s_dst;
   bool s_ok;
   size_t w_step, s_step;  // bytes of weights and scale rows a stage
+  int a_k[kAIt], w_k[kWIt], s_k;  // k of each copy within its stage
+  int k_left;                     // K - k_begin: copies at or past it are zero-filled
 
   __device__ __forceinline__ Loader(const Args& a, int k_begin, int row0, int col0) {
     const int tid = threadIdx.x;
+    k_left = a.K - k_begin;
 #pragma unroll
     for (int it = 0; it < kAIt; ++it) {
       const int i = tid + it * kThreads, r = i / P::kChunks, c = i % P::kChunks, m = row0 + r;
+      a_k[it] = 16 * c;
       a_ok[it] = (kAc % kThreads == 0 || i < kAc) && m < a.M;
       a_src[it] = a_ok[it] ? a.xq + static_cast<size_t>(m) * a.K + k_begin + 16 * c : a.xq;
       a_dst[it] = tile_off<KS>(r, c);
@@ -206,11 +213,13 @@ struct Loader {
       const int i = tid + it * kThreads;
       if constexpr (D == kInt8) {
         const int r = i / (kBN / 16), c = i % (kBN / 16);
+        w_k[it] = r;
         w_col[it] = col0 + 16 * c;
         w_src[it] = w + static_cast<size_t>(k_begin + r) * a.N + col0 + 16 * c;
         w_dst[it] = raw8_off(r, c);
       } else {
         const int r = i / (kBN / 4), c = i % (kBN / 4);
+        w_k[it] = r * Layout<D>::kUnitK;
         w_col[it] = col0 + 4 * c;
         w_src[it] = w + (static_cast<size_t>(k_begin / Layout<D>::kUnitK + r) * a.N + col0 + 4 * c) * 4;
         w_dst[it] = (r * kBN + 4 * c) * 4;
@@ -219,6 +228,7 @@ struct Loader {
     w_step = D == kInt8 ? static_cast<size_t>(KS) * a.N : static_cast<size_t>(P::kWRows) * a.N * 4;
     const int r = tid / (kBN / 4), c = tid % (kBN / 4);
     s_ok = tid < kSc && col0 + 4 * c < a.N;
+    s_k = r * G;
     s_src = a.sm + static_cast<size_t>(k_begin / G + r) * a.N + col0 + 4 * c;
     s_dst = P::kOffS + r * kBN + 4 * c;
     s_step = static_cast<size_t>(P::kClusters) * a.N;
@@ -227,15 +237,18 @@ struct Loader {
   // stage s (of the block's k range) into ring slot `slot`
   __device__ __forceinline__ void issue(unsigned char* smem, int slot, int s, const Args& a) const {
     unsigned char* As = smem + slot * P::kA;
+    const int left = k_left - s * KS;  // k of this stage below K
 #pragma unroll
-    for (int it = 0; it < kAIt; ++it)
-      cp16(As + a_dst[it], a_ok[it] ? a_src[it] + static_cast<size_t>(s) * KS : a.xq, a_ok[it]);
+    for (int it = 0; it < kAIt; ++it) {
+      const bool ok = a_ok[it] && a_k[it] < left;
+      cp16(As + a_dst[it], ok ? a_src[it] + static_cast<size_t>(s) * KS : a.xq, ok);
+    }
     unsigned char* Ws = smem + P::kOffW + slot * P::kW;
 #pragma unroll
     for (int it = 0; it < kWIt; ++it) {
       if (kWc % kThreads != 0 && static_cast<int>(threadIdx.x) + it * kThreads >= kWc) continue;
       const unsigned char* src = w_src[it] + s * w_step;
-      const int col = w_col[it];
+      const int col = w_k[it] < left ? w_col[it] : a.N;  // past K: as past N, zero-filled
       if (D != kInt8 || (a.N & 15) == 0) {
         cp16(Ws + w_dst[it], col < a.N ? src : a.w, col < a.N);
       } else {  // int8 rows only 4-byte aligned
@@ -243,7 +256,10 @@ struct Loader {
         for (int j = 0; j < 4; ++j) cp4(Ws + w_dst[it] + 4 * j, col + 4 * j < a.N ? src + 4 * j : a.w, col + 4 * j < a.N);
       }
     }
-    if (threadIdx.x < kSc) cp4(smem + s_dst + slot * P::kS, s_ok ? s_src + s * s_step : a.sm, s_ok);
+    if (threadIdx.x < kSc) {
+      const bool ok = s_ok && s_k < left;
+      cp4(smem + s_dst + slot * P::kS, ok ? s_src + s * s_step : a.sm, ok);
+    }
   }
 };
 
@@ -332,11 +348,11 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int g = lane >> 2, t4 = lane & 3;
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN, z = blockIdx.z;
-  const int nk = a.K / a.bk;
+  const int nk = (a.K + a.bk - 1) / a.bk;
   const int t_begin = z * a.tps, t_end = min(nk, t_begin + a.tps);
   const int k_begin = t_begin * a.bk;
-  const int tile_stages = a.bk / KS;  // the wrapper makes k-tiles whole stages
-  const int n_stages = (t_end - t_begin) * tile_stages;
+  const int tile_stages = a.bk / KS;  // the wrapper makes k-tiles whole stages (a ragged last one: fewer)
+  const int n_stages = (min(t_end * a.bk, a.K) - k_begin + KS - 1) / KS;
   const size_t plane = static_cast<size_t>(a.M) * a.N;
   // ldmatrix offsets of this lane, fixed for the kernel: A matrices (rows 0-7,
   // 8-15) x (k 0-15, 16-31); B matrices (k 0-15, 16-31) x (n 0-7, 8-15)
@@ -371,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
   __syncthreads();
   if (n_stages > 0) decode_stage<D, G>(smem, 0, 0, a.lut);
 
-  int slot = 0, in_tile = 0;
+  int slot = 0, in_tile = 0, tl = 0;  // tl: k-tiles of this split closed so far
   for (int s = 0; s < n_stages; ++s) {
     wait_group<kRing - 3>();  // stage s + 1 has landed
     __syncthreads();          // stage s decoded; slot (s - 1) % kRing and buffer (s + 1) % 2 free
@@ -428,8 +444,9 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
         convert<P>(acc, d, Fs, sp, wn * kWN + 2 * t4);
       }
     }
-    if (++in_tile == tile_stages) {  // a k-tile closes: into the output sums, or to this split's slot
-      in_tile = 0;
+    if (++in_tile == tile_stages || s + 1 == n_stages) {  // a k-tile closes: into the output sums, or to
+      in_tile = 0;                                         // this split's slot
+      ++tl;
       if (z == 0) {
 #pragma unroll
         for (int mi = 0; mi < kMi; ++mi)
@@ -441,8 +458,8 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
               o = __fadd_rn(o, acc[mi][ni][e]);
             }
       } else {
-        // tile t = t_begin + (s + 1) / tile_stages - 1 goes to slot t - tps + 1
-        float* ws = a.ws + static_cast<size_t>((z - 1) * a.tps + (s + 1) / tile_stages) * plane;
+        // tile t = t_begin + tl - 1 goes to slot t - tps + 1
+        float* ws = a.ws + static_cast<size_t>((z - 1) * a.tps + tl) * plane;
 #pragma unroll
         for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll

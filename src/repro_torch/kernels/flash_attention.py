@@ -43,20 +43,31 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 240)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def tile_shape(dtype, hd: int):
+    """(warps, keys a tile) of a block: bf16 8 warps over 64-key tiles,
+    float32 4 over 32; at hd 240 (gemma3) those do not fit a block's shared
+    memory (317,440 and 313,344 bytes), so 4 warps over 64 (bf16) or 16
+    (float32) keys."""
+    f32 = dtype == torch.float32
+    if hd == 240:
+        return 4, 16 if f32 else 64
+    return (4, 32) if f32 else (8, 64)
 
 
 def smem_bytes(dtype, hd: int) -> int:
     """Dynamic shared memory of a block (``Cfg::kSmem`` in the source):
-    three bf16 Q planes, then bf16 (8 warps, 128 rows, 64-key tiles): two
-    stages of K and V planes; float32 (4 warps, 64 rows, 32-key tiles):
-    three K and three V planes and two float32 stages of K and V.  Planes
-    are rows of hd + 8 bf16."""
+    three bf16 Q planes of 16 rows a warp, then bf16: two stages of K and V
+    planes; float32: three K and three V planes and two float32 stages of K
+    and V (``tile_shape``).  Planes are rows of hd + 8 bf16."""
+    warps, bk = tile_shape(dtype, hd)
     plane = 2 * (hd + 8)
     if dtype == torch.float32:
-        return 3 * 64 * plane + 6 * 32 * plane + 2 * 2 * 32 * hd * 4
-    return 3 * 128 * plane + 2 * 2 * 64 * plane
+        return 3 * 16 * warps * plane + 6 * bk * plane + 2 * 2 * bk * hd * 4
+    return 3 * 16 * warps * plane + 2 * 2 * bk * plane
 
 
 def _blocks(q, k, block_q: int, block_k: int):

@@ -22,8 +22,10 @@ computes, for x (M, K):
 
 Float sums follow the reference's order: clusters in order within each
 k-tile of ``block_k`` (512) elements, starting from 0, then tiles in order
-starting from 0.  No product is contracted into an fma, so the kernel and
-the plain version agree bit for bit.  ``kernels/packed_qmm.py`` runs the
+starting from 0.  K is any multiple of the cluster length: the k-tiles
+start at 0 and the last one is ragged (gemma3's 3840 = 7 x 512 + 256).  No
+product is contracted into an fma, so the kernel and the plain version
+agree bit for bit.  ``kernels/packed_qmm.py`` runs the
 same matmul over activations already quantized, with the same order.
 
 What bounds it on the H100, and the two kernels:
@@ -159,20 +161,26 @@ def quantize_prologue(x: torch.Tensor, act_bits: int, act_exponent: Optional[int
     return torch.nan_to_num(xq, nan=0.0).to(torch.int8), e
 
 
+def n_tiles(k: int, block_k: int = 512) -> int:
+    """k-tiles of a K row: tiles of ``min(block_k, K)`` from 0, the last
+    one ragged where K is not a multiple of ``block_k``."""
+    return -(-k // min(block_k, k))
+
+
 def cluster_sums(xq: torch.Tensor, packed: torch.Tensor, scale_m: torch.Tensor, *, decode: str,
                  group: int, block_k: int = 512) -> torch.Tensor:
     """int8 (M, K) x packed weights -> f32 (M, N): per cluster an exact dot
     times its scale mantissa, clusters added in order within each k-tile,
-    then the tiles in order (the kernels' float order)."""
+    then the tiles in order (the kernels' float order); a ragged last
+    tile holds the clusters that are left."""
     m, k = xq.shape
-    bk = min(block_k, k)
     part = cluster_dots(xq, _decode(packed, decode, k), group)  # (K/g, M, N)
     sm = scale_m.to(torch.float32)
     out = torch.zeros((m, part.shape[-1]), dtype=torch.float32, device=xq.device)
-    per_tile = bk // group
-    for t in range(k // bk):
+    per_tile, clusters = min(block_k, k) // group, k // group
+    for t in range(n_tiles(k, block_k)):
         acc = torch.zeros_like(out)
-        for s in range(t * per_tile, (t + 1) * per_tile):
+        for s in range(t * per_tile, min((t + 1) * per_tile, clusters)):
             acc = acc + part[s] * sm[s]
         out = out + acc
     return out
@@ -196,7 +204,7 @@ def fused_qmm_ref(
 def _lib():
     lib = _build.load("fused_qmm")
     fn = lib.fused_qmm_launch
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17
                    + [ctypes.c_uint] * 4 + [ctypes.c_size_t, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     int8 = lib.fused_qmm_int8_launch
@@ -214,7 +222,7 @@ def smem_bytes(rows: int, k: int, decode: str, group: int, block_k: int = 512) -
     with ``rows`` rows: int8 rows, exponents, tile sums, the block's scale
     mantissas."""
     bn = 128 if decode == "int8" else 32
-    return rows * k + 4 * _ROWS_PER_BLOCK + (k // min(block_k, k)) * rows * bn * 4 + (k // group) * bn
+    return rows * k + 4 * _ROWS_PER_BLOCK + n_tiles(k, block_k) * rows * bn * 4 + (k // group) * bn
 
 
 def rows_per_block(m: int, k: int, decode: str, group: int, block_k: int = 512) -> int:
@@ -248,16 +256,18 @@ def uses_int8_loop(decode: str, n: int, sms: int = 132) -> bool:
     return decode == "int8" and -(-n // 128) >= sms
 
 
-def gemv_smem_bytes(m: int, k: int, decode: str, group: int, bk: int, tps: int, cpp: int, wn: int) -> int:
+def gemv_smem_bytes(m: int, k: int, decode: str, group: int, bk: int, tps: int, cpp: int, wn: int,
+                    tpc: Optional[int] = None, pull: bool = False) -> int:
     """Dynamic shared memory of a GEMV block: the warps' rings (weight
-    bytes and scale words), the int8 rows of its k range (128-byte rounded
-    rows plus 16 bytes, so the lanes' rows fall on other banks), the piece
-    slots of one item and, with k-splits, the item's k-tile sums of every
-    split.  The launch passes it; the kernel refuses another."""
+    bytes and scale words), the int8 rows of ``tpc`` k-tiles of its k range
+    (all ``tps`` by default; 128-byte rounded rows plus 16 bytes, so the
+    lanes' rows fall on other banks), the piece slots of one item and,
+    with k-splits that push (not ``pull``), the item's k-tile sums of
+    every split.  The launch passes it; the kernel refuses another."""
     _, ring, lane = gemv_step(decode, group)
-    ppt, nk = bk // group // cpp, k // bk
-    stride = ((tps * bk + 127) & ~127) + 16
-    tile_sums = nk if tps < nk else 0
+    ppt, nk = bk // group // cpp, n_tiles(k, bk)
+    stride = ((min((tps if tpc is None else tpc) * bk, k) + 127) & ~127) + 16
+    tile_sums = nk if tps < nk and not pull else 0
     return GEMV_WARPS * ring * 32 * (lane + 4) + m * stride + (tps * ppt + tile_sums) * m * wn * GEMV_STRIP * 4
 
 
@@ -278,32 +288,59 @@ def gemv_plan(m: int, k: int, n: int, decode: str, group: int, block_k: int = 51
     PERF.md) the one with the most blocks is taken.  The grid is (grid_x,
     splits), grid_x <= sms * GEMV_BLOCKS_PER_SM / splits; a block loops
     over the items grid_x apart (gate / up: 384 strips on 192 blocks), so
-    its prologue runs once."""
+    its prologue runs once.
+
+    A block keeps the int8 rows of x for its whole k range in shared
+    memory (``tpc`` = ``tps``), and block 0 of a cluster a copy of every
+    split's tile sums.  Only where no shape fits that way (K = 49152,
+    qwen1.5-110b's down projection) does block 0 read the splits' sums
+    from their own shared memory (``pull``), and where that is not enough
+    either (M > 4 there) a block stages x ``tpc`` k-tiles at a time, the
+    most that fit, as a multiple of the warps' pieces where one fits."""
     if group not in TILE_GROUPS:
         raise ValueError(f"the GEMV (M <= {_build.GEMV_MAX_ROWS}) takes group in {TILE_GROUPS} (its mma k is 16 or "
                          f"32 and |cluster dot| < 2**22); got group={group}")
     bk = min(block_k, k)
-    nk, cpt = k // bk, bk // group
+    nk, cpt = n_tiles(k, block_k), bk // group
     strips = -(-n // GEMV_STRIP)
-    options = []
-    for cpp in (cpt, 1) if cpt > 1 else (1,):
-        ppt = cpt // cpp
-        for splits in range(1, min(nk, GEMV_MAX_SPLITS) + 1):
-            tps = -(-nk // splits)
-            if -(-nk // tps) != splits:
-                continue
-            pps = tps * ppt  # pieces of a strip in a block
-            wn = 1
-            while wn < GEMV_WARPS and wn * pps < GEMV_WARPS:
-                wn *= 2
-            smem = gemv_smem_bytes(m, k, decode, group, bk, tps, cpp, wn)
-            items = -(-strips // wn)
-            if smem <= GEMV_SMEM and items * splits >= sms:
-                options.append((items * splits > sms * GEMV_BLOCKS_PER_SM, wn * pps % GEMV_WARPS != 0,
-                                dict(cpp=cpp, tps=tps, splits=splits, wn=wn, items=items, smem=smem)))
-            elif smem <= GEMV_SMEM:
-                options.append((True, True, dict(cpp=cpp, tps=tps, splits=splits, wn=wn, items=items, smem=smem,
-                                                 short=True)))
+
+    def chunk(tps, cpp, wn, pull, staged):
+        """(tiles of x staged at a time, shared memory), or None if none fits."""
+        if not staged:
+            smem = gemv_smem_bytes(m, k, decode, group, bk, tps, cpp, wn, None, pull)
+            return (tps, smem) if smem <= GEMV_SMEM else None
+        fits = [t for t in range(tps - 1, 0, -1)
+                if gemv_smem_bytes(m, k, decode, group, bk, tps, cpp, wn, t, pull) <= GEMV_SMEM]
+        if not fits:
+            return None
+        even = [t for t in fits if t * (cpt // cpp) % (GEMV_WARPS // wn) == 0]
+        tpc = (even or fits)[0]
+        return tpc, gemv_smem_bytes(m, k, decode, group, bk, tps, cpp, wn, tpc, pull)
+
+    for pull, staged in ((False, False), (True, False), (True, True)):
+        options = []
+        for cpp in (cpt, 1) if cpt > 1 else (1,):
+            ppt = cpt // cpp
+            for splits in range(1, min(nk, GEMV_MAX_SPLITS) + 1):
+                tps = -(-nk // splits)
+                if -(-nk // tps) != splits:
+                    continue
+                pps = tps * ppt  # pieces of a strip in a block
+                wn = 1
+                while wn < GEMV_WARPS and wn * pps < GEMV_WARPS:
+                    wn *= 2
+                fit = chunk(tps, cpp, wn, pull, staged)
+                if fit is None:
+                    continue
+                items = -(-strips // wn)
+                shape = dict(cpp=cpp, tps=tps, splits=splits, wn=wn, items=items, tpc=fit[0],
+                             pull=int(pull and splits > 1), smem=fit[1])
+                if items * splits >= sms:
+                    options.append((items * splits > sms * GEMV_BLOCKS_PER_SM, wn * pps % GEMV_WARPS != 0, shape))
+                else:
+                    options.append((True, True, dict(shape, short=True)))
+        if options:
+            break
     full = [o for o in options if "short" not in o[2]]
     if full:
         plan = min(full, key=lambda o: o[:2])[2]  # stable: earlier shapes win ties
@@ -320,7 +357,7 @@ def gemv_plan(m: int, k: int, n: int, decode: str, group: int, block_k: int = 51
 
 def gemv_args(plan: dict) -> tuple:
     """The plan as the GEMV launchers take it."""
-    return tuple(plan[key] for key in ("tps", "splits", "wn", "cpp", "items", "grid_x"))
+    return tuple(plan[key] for key in ("tps", "splits", "wn", "cpp", "items", "grid_x", "tpc", "pull"))
 
 
 def uses_tile(m: int) -> bool:
@@ -356,8 +393,7 @@ def tile_plan(m: int, k: int, n: int, decode: str, group: int, block_k: int = 51
     the first split's sum, one slot per later k-tile.  Splits pay for
     chunks of few rows; at M = 256 the scratch traffic and the combine
     cost what the fuller grid saves (PERF.md, the k-split log)."""
-    bk = min(block_k, k)
-    nk = k // bk
+    nk = n_tiles(k, block_k)
     blocks = -(-m // TILE_M) * -(-n // TILE_N)
     splits, tps = 1, nk
     if 2 * blocks <= sms:
@@ -372,7 +408,8 @@ def tile_plan(m: int, k: int, n: int, decode: str, group: int, block_k: int = 51
 
 def check_tile(k: int, group: int, block_k: int) -> None:
     """Raise on a tiling the tensor-core tile does not take: its cluster
-    lengths, and k-tiles of whole stages."""
+    lengths, and k-tiles of whole stages (a ragged last tile may end inside
+    a stage: the copies past K are zero-filled)."""
     ks = tile_stage_k(group)
     if group not in TILE_GROUPS or min(block_k, k) % ks:
         raise ValueError(f"the tensor-core tile (M > {_build.GEMV_MAX_ROWS}) takes group in {TILE_GROUPS} and "
@@ -395,14 +432,13 @@ def check_weights(m: int, k: int, packed, scale_m, *, decode: str, group: int, b
     """Raise on weights or a tiling the kernels do not take; returns N."""
     if decode not in DECODES:
         raise ValueError(f"unknown decode {decode!r}; supported: {DECODES}")
-    n = packed.shape[1]
-    bk = min(block_k, k)
+    n, bk = packed.shape[1], min(block_k, k)
     wdtype, wrows = (torch.int8, k) if decode == "int8" else (torch.int32, k // PER_WORD[decode])
     if packed.dtype != wdtype or packed.shape != (wrows, n):
         raise ValueError(f"{decode} weights must be {wdtype} {(wrows, n)}, got {packed.dtype} {tuple(packed.shape)}")
     if scale_m.dtype != torch.int8 or scale_m.shape != (k // group, n):
         raise ValueError(f"scale_m must be int8 {(k // group, n)}, got {scale_m.dtype} {tuple(scale_m.shape)}")
-    if k % bk or bk % group or group % _UNIT_K[decode] or n % 4:
+    if k % group or bk % group or group % _UNIT_K[decode] or n % 4:
         raise ValueError(f"unsupported tiling K={k} block_k={bk} group={group} N={n} for {decode}")
     if uses_tile(m):
         check_tile(k, group, block_k)

@@ -38,7 +38,7 @@ packed_qmm_ref = cluster_sums  # the plain version: the same float order, operat
 def _lib():
     lib = _build.load("packed_qmm")
     fn = lib.packed_qmm_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_uint] * 4
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_uint] * 4
                    + [ctypes.c_size_t, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     int8 = lib.packed_qmm_int8_launch

@@ -1,5 +1,6 @@
 """Model API for the dense family (counterpart of
-``repro/models/model_zoo.py``).
+``repro/models/model_zoo.py``): qwen3-8b, phi4-mini-3.8b, qwen1.5-110b
+and gemma3-12b (``window_schedule``'s local and global layers).
 
 ``build_model(cfg)`` returns a ``ModelApi`` bound to a device -- the card
 unless the caller passes ``device="cpu"``; with no card and no explicit
@@ -74,8 +75,10 @@ def insert_prefix(cache, prefix, slot: int):
 def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None) -> ModelApi:
     dev = resolve_device(device)
     ctx = ctx or make_ctx(cfg)
-    if cfg.family != "dense" or cfg.n_experts or cfg.sliding_window or cfg.mrope:
-        raise NotImplementedError(f"{cfg.name}: only the dense global-attention decoder is ported")
+    if cfg.family != "dense" or cfg.n_experts or cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense decoder family is ported (global and sliding-window attention, qkv "
+            f"biases); MoE comes next (ROADMAP Queue A7.2), then the other families")
     return ModelApi(
         cfg, ctx, dev,
         init=lambda gen: transformer.init_lm(gen, cfg, dev),

@@ -163,11 +163,25 @@ def test_flash_in_chunk_tail_matches_plain(dev):
 
 
 def test_flash_rejects_rows_too_narrow_for_16_byte_loads(dev):
-    c = kv_cache.get_kv_format("kv_mx").init((1,), 64, 1, 16, torch.bfloat16, dev)
-    q = torch.randn((1, 1, 1, 1, 16), device=dev)
+    """kv_mx rows that are not whole 16-byte pieces: hd 48 (24 bytes) has
+    no kernel instance and raises by name; hd 16 (8 bytes) is copied in
+    8-byte pieces, as hd 240's 120-byte rows are, and matches plain."""
     one = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    c = kv_cache.get_kv_format("kv_mx").init((1,), 64, 1, 48, torch.bfloat16, dev)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attend(q, c["k"], c["v"], c["ke"], c["ve"], one - 1, one, one, fmt="kv_mx")
+        flash_attend(torch.randn((1, 1, 1, 1, 48), device=dev), c["k"], c["v"], c["ke"], c["ve"], one - 1, one, one,
+                     fmt="kv_mx")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    c = _packed_cache("kv_mx", 2, 64, 2, 16, gen, dev)
+    for s in (1, 9):
+        q = torch.randn((2, s, 2, 2, 16), generator=gen, device=dev)
+        start = torch.tensor([[0], [64 - s - 5]], dtype=torch.int32, device=dev)
+        win = torch.tensor([[2**30]], dtype=torch.int32, device=dev)
+        args = (q, c["k"], c["v"], c["ke"], c["ve"], start, start + s, win)
+        got = flash_attend(*args, fmt="kv_mx")
+        want = flash_attend_ref(*args, fmt="kv_mx")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -631,3 +645,66 @@ def test_cold_start_from_artifact_on_the_card(dev, tmp_path):
             outs.append({r.uid: r.output for r in eng.run()})
             assert eng.api.device.type == "cuda" and ternary_matmul_fused.launches > before
         assert outs[0] == outs[1] and all(len(t) == 6 for t in outs[0].values())
+
+
+# ---------------------------------------------------------------------------
+# the dense siblings' shapes: a ragged last k-tile (gemma3's K = 3840 =
+# 7 x 512 + 256), K = 49152 (qwen1.5-110b's down projection), head_dim 240
+# ---------------------------------------------------------------------------
+SIBLING_DECODES = [("ternary", 2, 64), ("int4", 4, 64), ("nf4", 4, 64), ("mx", 8, 32)]
+
+
+@pytest.mark.parametrize("fmt,bits,group", SIBLING_DECODES)
+@pytest.mark.parametrize("m,k,n", [(1, 3840, 1920), (4, 3840, 3840), (8, 768, 256), (17, 3840, 512),
+                                   (256, 3840, 1920), (4, 49152, 1024), (8, 49152, 512)])
+def test_qdense_any_k_bit_exact(dev, fmt, bits, group, m, k, n):
+    """Fused and packed, GEMV (M <= 8) and tile (M > 8), 0 ulps from the
+    plain versions; at K = 49152 and M = 8 the GEMV stages x by k range."""
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.quant.formats import get_format
+
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * k**-0.5, bits, group, fmt=fmt)
+    decode = "int8" if fmt == "mx" else fmt
+    x = (torch.randn((m, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    f = get_format(fmt)
+    got = f.fused_kernel(x, qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size, act="silu")
+    want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, group=qt.group_size, act="silu")
+    xq, _ = quantize_rows(x)
+    got_p = f.kernel(xq, qt.packed, qt.scale_m, group=qt.group_size)
+    want_p = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got_p.view(torch.int32), want_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("fmt", ["kv_bf16", "kv_int8", "kv_mx"])
+@pytest.mark.parametrize("s", [1, 31, 256])
+def test_flash_hd_240_matches_plain(dev, fmt, s):
+    """gemma3's head_dim, global and a 300-token window, decode and chunks."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    b, t, kh, g, hd = 2, 1024, 2, 2, 240
+    c = _packed_cache(fmt, b, t, kh, hd, gen, dev)
+    q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev)
+    start = torch.tensor([[0], [t - s - 37]], dtype=torch.int32, device=dev)
+    for window in (2**30, 300):
+        win = torch.tensor([[window]], dtype=torch.int32, device=dev)
+        args = (q, c["k"], c["v"], c.get("ke"), c.get("ve"), start, start + s, win)
+        got = flash_attend(*args, fmt=fmt)
+        want = flash_attend_ref(*args, fmt=fmt)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+def test_flash_attention_hd_240_matches_plain(dev, dtype, atol):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device=dev).manual_seed(240)
+    q, k, v = (torch.randn((3, n, 240), generator=gen, device=dev).to(dtype) for n in (128, 256, 256))
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)

@@ -259,11 +259,13 @@ def emulate_gemv(xq, packed, scale_m, *, decode, group, block_k=512, plan=None, 
     PTX fragment maps, one magic-number product per cluster folded into
     its piece, pieces of a tile in order, tiles in order (the first split's
     tiles, then each later split's, as block 0 of the cluster reads them;
-    ``slot_order=-1`` adds the later splits' tiles in reverse)."""
+    ``slot_order=-1`` adds the later splits' tiles in reverse).  A ragged
+    last k-tile has fewer pieces (single clusters) or a shorter piece
+    (whole tiles), as the kernel's ``pps`` and ``piece_cl``."""
     m, k = xq.shape
     n = packed.shape[1]
     bk = min(block_k, k)
-    nk, cpt = k // bk, bk // group
+    nk, cpt = -(-k // bk), bk // group
     plan = plan or gemv_plan(m, k, n, decode, group, block_k)
     cpp, tps, splits = plan["cpp"], plan["tps"], plan["splits"]
     sk = gemv_step(decode, group)[0]
@@ -278,9 +280,10 @@ def emulate_gemv(xq, packed, scale_m, *, decode, group, block_k=512, plan=None, 
         tile_sums = []
         for t in range(nk):
             slots = []
-            for p in range(cpt // cpp):
+            clusters = min(bk, k - t * bk) // group  # of this k-tile
+            for p in range(-(-clusters // cpp)):
                 acc = {jp: torch.zeros(16, 8, dtype=torch.float32) for jp in range(2)}
-                for cl in range(cpp):
+                for cl in range(min(cpp, clusters - p * cpp)):
                     kc = t * bk + (p * cpp + cl) * group
                     dots = {jp: torch.zeros(16, 8, dtype=torch.int64) for jp in range(2)}
                     for st in range(group // sk):

@@ -260,10 +260,12 @@ def emulate_tile(xq, packed, scale_m, *, decode, group, block_k=512, splits_plan
     the mma fragments hold), the magic-number product, clusters in order
     into a k-tile sum from 0, k-tiles closed on stage boundaries into the
     output (first split) or a scratch slot (later splits), the slots added
-    in order by the last block."""
+    in order by the last block.  A ragged last k-tile ends on the stage
+    that holds K; that stage's clusters past K see the zero-filled copies
+    (x, weights and scale mantissas 0)."""
     m, k = xq.shape
     bk = min(block_k, k)
-    ks, nk = tile_stage_k(group), k // bk
+    ks, nk = tile_stage_k(group), -(-k // bk)
     assert bk % ks == 0
     plan = splits_plan or tile_plan(m, k, packed.shape[1], decode, group, block_k)
     b = decoded_b(packed, decode, k).to(torch.int64)  # (N, K)
@@ -277,9 +279,12 @@ def emulate_tile(xq, packed, scale_m, *, decode, group, block_k=512, splits_plan
         acc = torch.zeros(m, n, dtype=torch.float32)
         run = torch.zeros(m, n, dtype=torch.float32)
         for t in range(z * tps, min(nk, (z + 1) * tps)):
-            for s in range(bk // ks):  # stages of the k-tile
+            for s in range(-(-min(bk, k - t * bk) // ks)):  # stages of the k-tile
                 for cl in range(ks // group):
                     k0 = t * bk + s * ks + cl * group
+                    if k0 >= k:  # zero-filled
+                        acc = acc + magic_product(torch.zeros(m, n, dtype=torch.int64), torch.zeros(1, n))
+                        continue
                     dot = x[:, k0:k0 + group] @ b[:, k0:k0 + group].t()
                     assert int(dot.abs().max()) < 2**22
                     acc = acc + magic_product(dot, sm[k0 // group][None, :])
