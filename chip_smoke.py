@@ -121,7 +121,31 @@ Phases, in order; any failure exits non-zero:
                  --engine lockstep.  Each model's load s, peak memory,
                  tokens/s and launches are logged; it is freed before the
                  next
- 10. timings  -- kernel, plain version, library call (a yardstick the port
+ 10. moe      -- the MoE family at its published widths, ternary group 64,
+                 kv_int8, both flash flags, random seeded weights quantized
+                 on the card one site at a time: parity first -- the
+                 expert-batched packed_qmm (one launch over every expert) in
+                 all five formats at grok's gate / up (E 8, K 6144, N 32768)
+                 and down (K 32768, N 6144), C 8 (the GEMV; int8 gate: the
+                 int8 loop) and C 80 (the tile), and arctic's (E 128, K 7168
+                 / 4864) at C 8, with the capacity buffer's zero rows;
+                 quantize_rows over the (E * C, K) buffers; the int8 router
+                 at N 8 and 128, fused and packed, M 1, 4, 8, 256; all 0
+                 ulps; one grok layer's moe_layer at a decode step and a
+                 256-token chunk, kernels against their plain versions on
+                 the card, bit for bit, one quantize_rows and one packed
+                 launch a site -- then grok-1-314b at 24 of 64 layers (its
+                 packed weights, ~31 GB, and the load's peak fit the card;
+                 64 layers would take ~84 GB) through the StagedEngine and
+                 the lockstep engine on the launcher's traffic (8 requests,
+                 6-token prompts, 8 new tokens; staged vs lockstep token
+                 differences logged, not gated) and staged on prompts of
+                 600, 257, 31 and 6 tokens (the tile); arctic-480b at 4 of
+                 35 layers (~14 GB packed) staged on the launcher's
+                 traffic, with 3 packed launches a layer a forward over its
+                 128 experts.  Load s, packed and peak GB, tokens/s and
+                 launches are logged
+ 11. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
                  (flash: at the bf16 tensor-core peak, the float32 one
                  logged beside it); qdense per site and per layer at M = 4
@@ -130,7 +154,10 @@ Phases, in order; any failure exits non-zero:
                  the families' new shapes: a gemma3 ragged-K site (wq) at
                  M = 4 and 256, the K = 49152 GEMV, flash_attend kv_int8 at
                  hd 240 (decode, 256-token chunk) and flash_attention at
-                 hd 240
+                 hd 240; the expert-batched packed_qmm (ternary) at grok's
+                 gate and down, C 8 and 80, and arctic's gate, C 8 (library:
+                 torch.bmm over the bf16-dequantized (E, K, N) weights), and
+                 the int8 router site at N 8, M = 4
 
 The traced ticks and chunks log device busy time, kernels per call and the
 qdense GEMV's device time and launches per tick.
@@ -1541,23 +1568,15 @@ FAMILY_ROWS = {  # JSON row -> what the families phase counts for its launches
 
 
 class _KeyedLaunches:
-    """Launches by route and K (qdense) or by mode and head_dim (flash),
-    counted where the wrappers plan a launch: fused_qmm / packed_qmm plan
-    the GEMV (``gemv_plan``), the tile (``tile_plan``) or the int8 loop
-    (``rows_per_block``) right before they launch it, flash_attend its
-    call (``launch_plan``).  Installed for the families phase only."""
+    """Launches by a key of each call's arguments: ``wraps`` is (module,
+    function name, key of the positional arguments) for every function to
+    count; ``close`` puts the functions back."""
 
-    def __init__(self):
-        from repro_torch.kernels import flash_prefill as fp
-        from repro_torch.kernels import fused_qmm as fq
-        from repro_torch.kernels import packed_qmm as pq
-
+    def __init__(self, wraps):
         self.counts: dict = {}
         self.saved = []
-        for mod in (fq, pq):
-            for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"), ("rows_per_block", "int8 loop")):
-                self._wrap(mod, name, lambda a, route=route: (route, a[1]))
-        self._wrap(fp, "launch_plan", lambda a: (f"{a[0]}/{'decode' if a[2] == 1 else 'prefill'}", a[6]))
+        for mod, name, key in wraps:
+            self._wrap(mod, name, key)
 
     def _wrap(self, mod, name, key):
         fn = getattr(mod, name)
@@ -1573,6 +1592,22 @@ class _KeyedLaunches:
     def close(self):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+def _family_launches() -> _KeyedLaunches:
+    """Launches by route and K (qdense) or by mode and head_dim (flash),
+    counted where the wrappers plan a launch: fused_qmm / packed_qmm plan
+    the GEMV (``gemv_plan``), the tile (``tile_plan``) or the int8 loop
+    (``rows_per_block``) right before they launch it, flash_attend its
+    call (``launch_plan``).  Installed for the families phase only."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import fused_qmm as fq
+    from repro_torch.kernels import packed_qmm as pq
+
+    wraps = [(mod, name, lambda a, route=route: (route, a[1])) for mod in (fq, pq)
+             for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"), ("rows_per_block", "int8 loop"))]
+    wraps.append((fp, "launch_plan", lambda a: (f"{a[0]}/{'decode' if a[2] == 1 else 'prefill'}", a[6])))
+    return _KeyedLaunches(wraps)
 
 
 def _parity_families(dev, gen, errs) -> list:
@@ -1879,7 +1914,7 @@ def phase_families(dev, errs) -> tuple:
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     from repro_torch.kernels.flash_attention import flash_attention
 
-    keyed = _KeyedLaunches()
+    keyed = _family_launches()
     totals: dict = {}
     try:
         attn = flash_attention.launches
@@ -1900,7 +1935,286 @@ def phase_families(dev, errs) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# 10. timings
+# 10. moe: the MoE family at its published widths
+# ---------------------------------------------------------------------------
+GROK, ARCTIC = "grok-1-314b", "arctic-480b"
+GROK_LAYERS = 24  # of 64: ~31 GB packed; 64 layers (~84 GB) do not fit the card
+ARCTIC_LAYERS = 4  # of 35: ~14 GB packed, the 128-expert path at a few layers
+MOE_FORMATS = FORMATS  # every weight format over the experts
+EXPERT_SITES = [  # (name, E, K, N, capacity rows C): grok gate / up and down, arctic's
+    ("grok_gate", 8, 6144, 32768, (8, 80)), ("grok_down", 8, 32768, 6144, (8, 80)),
+    ("arctic_gate", 128, 7168, 4864, (8,)), ("arctic_down", 128, 4864, 7168, (8,)),
+]
+ROUTER_SITES = [(6144, 8), (7168, 128)]  # (d_model, E): grok, arctic
+ROUTER_ROWS = (1, 4, 8, 256)
+MOE_LONG_PROMPTS = [600, 257, 31, 6]  # grok staged: 256-token chunks and ragged tails, so the tile runs (C 80, 32, 16)
+MOE_CHUNK = 256
+# JSON row -> (what the moe phase counts: an expert packed launch (E, K, N, mode) or the fused router (K, N))
+MOE_ROWS = {
+    "packed_qmm_ternary_experts_grok_gate": ("packed", 8, 6144, 32768, "m<=8"),
+    "packed_qmm_ternary_experts_grok_gate_prefill": ("packed", 8, 6144, 32768, "m>8"),
+    "packed_qmm_ternary_experts_grok_down": ("packed", 8, 32768, 6144, "m<=8"),
+    "packed_qmm_ternary_experts_grok_down_prefill": ("packed", 8, 32768, 6144, "m>8"),
+    "packed_qmm_ternary_experts_arctic_gate": ("packed", 128, 7168, 4864, "m<=8"),
+    "fused_qmm_int8_router": ("fused", 0, 6144, 8, "m<=8"),
+}
+
+
+def _moe_launches() -> _KeyedLaunches:
+    """Launches of the format entries' kernels (``packed_qmm`` and
+    ``fused_qmm`` as the entries call them) keyed by (kind, E, K, N, mode),
+    E 0 for one site.  Installed for the moe phase's serving runs only."""
+    import importlib
+
+    def key(kind):
+        return lambda a: (kind, a[0].shape[0] if a[0].ndim == 3 else 0, a[0].shape[-1], a[1].shape[-1],
+                          "m<=8" if a[0].shape[-2] <= 8 else "m>8")
+
+    return _KeyedLaunches([(importlib.import_module(f"repro_torch.kernels.{fmt}_matmul"), name, key(name.split("_")[0]))
+                           for fmt in ("ternary", "int4", "int8", "nf4") for name in ("packed_qmm", "fused_qmm")])
+
+
+class _PlainKernels:
+    """Inside ``with``, the format entries and the quantize step run their
+    kernels' plain versions on CUDA tensors (the fused site's
+    ``fused_qmm_ref``, ``packed_qmm_ref`` over every expert,
+    ``quantize_rows_plain``): the moe layer's plain path on the card, the
+    same torch code around them."""
+
+    def __enter__(self):
+        import importlib
+
+        from repro_torch.kernels.fused_qmm import fused_qmm_ref
+        from repro_torch.kernels.packed_qmm import packed_qmm_ref
+        from repro_torch.kernels.quantize import quantize_rows_plain
+        from repro_torch.quant import backends
+
+        self.saved = [(backends, "quantize_rows", backends.quantize_rows)]
+        backends.quantize_rows = quantize_rows_plain
+        for fmt in ("ternary", "int4", "int8", "nf4"):
+            mod = importlib.import_module(f"repro_torch.kernels.{fmt}_matmul")
+            self.saved += [(mod, "packed_qmm", mod.packed_qmm), (mod, "fused_qmm", mod.fused_qmm)]
+            mod.packed_qmm, mod.fused_qmm = packed_qmm_ref, fused_qmm_ref
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _expert_qsite(e, k, n, fmt, gen, dev):
+    """An expert site's QTensor of random codes in the format's range, one
+    expert at a time: (E, K/w, N) words, (E, K/g, N) scale mantissas (mx:
+    powers of two), (E,) exponents."""
+    from repro_torch.core.quantizer import QTensor
+    from repro_torch.quant.formats import get_format
+
+    f = get_format(fmt)
+    group = f.block_size or GROUP
+    lo, hi = {"ternary": (-1, 2), "int4": (-7, 8), "nf4": (0, 16)}.get(fmt, (-127, 128))
+    packed = torch.stack([f.encode(torch.randint(lo, hi, (k, n), generator=gen, device=dev, dtype=torch.int8))
+                          for _ in range(e)])
+    if fmt == "mx":
+        scale_m = (1 << torch.randint(0, 7, (e, k // group, n), generator=gen, device=dev)).to(torch.int8)
+    else:
+        scale_m = torch.randint(-127, 128, (e, k // group, n), generator=gen, device=dev, dtype=torch.int8)
+    scale_e = torch.randint(-14, -4, (e,), generator=gen, device=dev, dtype=torch.int32)
+    return QTensor(packed, scale_m, scale_e, f.bits, group, (k, n), fmt=fmt)
+
+
+def _parity_moe(dev, gen, errs) -> list:
+    """The MoE path's kernels against their plain versions on the card, 0
+    ulps: the expert-batched packed_qmm (one launch over every expert) in
+    all five formats at grok's gate / up and down (C 8: the GEMV or, int8
+    gate, the int8 loop; C 80: the tile) and arctic's (E 128, C 8), with
+    the capacity buffer's zero rows; quantize_rows over the (E * C, K)
+    buffers; the int8 router site at N 8 and 128, fused and packed, M 1,
+    4, 8, 256."""
+    from repro_torch.kernels.fused_qmm import fused_qmm_ref
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows, quantize_rows_plain
+    from repro_torch.quant.formats import get_format
+
+    failures = []
+
+    def check(key, what, got, want, launched=True):
+        torch.cuda.synchronize()
+        ulps, err = _ulps(got, want), float((got - want).abs().max())
+        if key:
+            errs[key] = max(errs.get(key, 0.0), err)
+        ok = bool(torch.isfinite(got).all()) and ulps == 0 and launched
+        log(f"parity {what}: max_abs_err={err:.3e} ulps={ulps}{'' if launched else ' (not one launch)'} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    for name, e, k, n, rows in EXPERT_SITES:
+        for fmt in MOE_FORMATS:
+            qt = _expert_qsite(e, k, n, fmt, gen, dev)
+            entry = get_format(fmt).kernel
+            for c in rows:
+                xq = torch.randint(-127, 128, (e, c, k), generator=gen, device=dev, dtype=torch.int8)
+                xq[:, c // 2 + 1:] = 0  # the capacity buffer's empty rows
+                before = entry.launches
+                got = entry(xq, qt.packed, qt.scale_m, group=qt.group_size)
+                one = entry.launches == before + 1
+                want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=_decode_of(fmt), group=qt.group_size)
+                key = f"packed_qmm_ternary_experts_{name}{'' if c <= 8 else '_prefill'}"
+                check(key if fmt == "ternary" and key in MOE_ROWS else None,
+                      f"packed_qmm experts {name} E={e} K={k} N={n} C={c} {fmt}", got, want, one)
+                del xq, got, want
+            del qt
+            torch.cuda.empty_cache()
+    for e, c, k, dtype in ((8, 80, 6144, torch.bfloat16), (8, 80, 32768, torch.float32),
+                           (128, 8, 7168, torch.bfloat16)):
+        x = _rows(e * c, k, gen, dev, dtype)
+        x.view(e, c, k)[:, c // 2 + 1:] = 0
+        q, ex = quantize_rows(x)
+        wq, wex = quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        ok = torch.equal(q, wq) and torch.equal(ex, wex)
+        log(f"parity quantize_rows the (E * C, K) buffer E={e} C={c} K={k} {str(dtype)[6:]}: "
+            f"{'bit-identical' if ok else 'DIFFER'} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"quantize_rows E={e} C={c} K={k}")
+    for k, n in ROUTER_SITES:
+        qt = _qsite(k, n, "int8", gen, dev)
+        for m in ROUTER_ROWS:
+            x = _rows(m, k, gen, dev, torch.bfloat16)
+            key = "fused_qmm_int8_router" if (k, n) == ROUTER_SITES[0] and m <= 8 else None
+            check(key, f"router K={k} N={n} int8 M={m} fused", _entry("int8")(x, qt.packed, qt.scale_m, qt.scale_e,
+                                                                               group=qt.group_size),
+                  fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode="int8", group=qt.group_size))
+            xq, _ = quantize_rows(x)
+            check(None, f"router K={k} N={n} int8 M={m} packed",
+                  get_format("int8").kernel(xq, qt.packed, qt.scale_m, group=qt.group_size),
+                  packed_qmm_ref(xq, qt.packed, qt.scale_m, decode="int8", group=qt.group_size))
+        del qt
+    return failures
+
+
+def _moe_layer_parity(dev) -> list:
+    """One grok-1 layer's ``moe_layer`` at full width (ternary group 64,
+    the int8 router): a decode step (4 slots: C 8) and a 256-token chunk
+    (C 80), the kernels against their plain versions on the card on the
+    same weights and input, bit for bit, and one packed launch and one
+    quantize_rows a site."""
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.models import moe
+    from repro_torch.quant import api as quant_api
+    from repro_torch.quant.plan import QuantCtx, QuantPlan, compile_policy
+
+    cfg = _ptq_cfg(1, arch=GROK)
+    policy = QuantCtx.from_config(cfg.quant).policy
+    rules = QuantPlan(policy=policy)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    p = moe.init_moe(gen, cfg, torch.bfloat16, dev,
+                     leaf=lambda path, key, val: quant_api.quantize_leaf(path, key, val, rules))
+    ctx = QuantCtx.for_plan(compile_policy(policy, {"blocks": [{"moe": p}]}, backend="auto"))
+    failures = []
+    for label, shape in (("decode step", (SLOTS, 1)), ("256-token chunk", (1, MOE_CHUNK))):
+        h = torch.randn(shape + (cfg.d_model,), generator=gen, device=dev).to(torch.bfloat16)
+        before = (quantize_rows.launches, ternary_matmul.launches)
+        with torch.inference_mode():
+            got = moe.moe_layer(p, h, "blocks/moe", cfg, ctx)
+            launched = (quantize_rows.launches - before[0], ternary_matmul.launches - before[1])
+            with _PlainKernels():
+                want = moe.moe_layer(p, h, "blocks/moe", cfg, ctx)
+        torch.cuda.synchronize()
+        ulps = _ulps(got.float(), want.float())
+        ok = bool(torch.isfinite(got).all()) and ulps == 0 and launched == (3, 3)
+        log(f"parity moe_layer {GROK} full width, {label} {tuple(h.shape)}: kernels vs plain versions ulps={ulps} "
+            f"(max|y| {float(want.float().abs().max()):.3e}); quantize_rows / packed launches {launched} (one a site) "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"moe_layer {label}")
+    del p
+    _free()
+    return failures
+
+
+def _family_grok(dev, totals) -> None:
+    """GROK_LAYERS of grok-1 through the StagedEngine and the lockstep
+    engine on the launcher's traffic, then staged on longer prompts (the
+    tile at C 80, 32, 16)."""
+    from repro_torch.launch import serve
+
+    cfg = _ptq_cfg(GROK_LAYERS, arch=GROK, kv_fmt="kv_int8", flash_prefill=True)
+    label = f"{GROK} {cfg.n_layers}L"
+    booted = _boot_family(dev, cfg, label)
+    prompts = serve.draw_prompts(8, cfg.vocab)
+    base = ["fused_qmm_ternary", "fused_qmm_int8", "packed_qmm_ternary", "flash_attend_int8"]
+    req = {"staged": base + ["quantize_rows_prefill", "flash_attend_int8_prefill"],
+           "lockstep": base + ["quantize_rows_prefill"]}  # the (E * C, K) buffer: 64 rows at C 8
+    outs = {}
+    for kind in ("staged", "lockstep"):
+        outs[kind], launches = _run_engine(kind, booted, prompts, max_len=STAGED_MAX_LEN, new=serve.NEW_TOKENS,
+                                           label=label, required=req[kind])
+        _add(totals, launches)
+    _compare_engines(label, outs)
+    gen = torch.Generator().manual_seed(SEED + 31)
+    long_prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist() for n in MOE_LONG_PROMPTS]
+    _, launches = _run_engine("staged", booted, long_prompts, max_len=STAGED_MAX_LEN, new=NEW,
+                              label=f"{label} prompts {MOE_LONG_PROMPTS}",
+                              required=req["staged"] + ["fused_qmm_ternary_prefill"])
+    _add(totals, launches)
+    del booted
+    _free()
+
+
+def _family_arctic(dev, totals) -> None:
+    """ARCTIC_LAYERS of arctic-480b (128 experts, the dense residual MLP)
+    through the StagedEngine on the launcher's traffic: every forward
+    makes 3 packed launches a layer over all 128 experts, not 384."""
+    from repro_torch.launch import serve
+
+    cfg = _ptq_cfg(ARCTIC_LAYERS, arch=ARCTIC, kv_fmt="kv_int8", flash_prefill=True)
+    label = f"{ARCTIC} {cfg.n_layers}L"
+    booted = _boot_family(dev, cfg, label)
+    _, launches = _run_engine("staged", booted, serve.draw_prompts(8, cfg.vocab), max_len=STAGED_MAX_LEN,
+                              new=serve.NEW_TOKENS, label=label,
+                              required=["fused_qmm_ternary", "fused_qmm_int8", "packed_qmm_ternary",
+                                        "quantize_rows_prefill", "flash_attend_int8", "flash_attend_int8_prefill"])
+    _add(totals, launches)
+    forwards = launches["fused_qmm_int8"] // (cfg.n_layers + 1)  # the router a layer and lm_head, each forward
+    per_layer = launches["packed_qmm_ternary"] / (forwards * cfg.n_layers)
+    ok = per_layer == 3
+    log(f"{label}: {forwards} forwards, {launches['packed_qmm_ternary']} packed launches = {per_layer:g} a layer a "
+        f"forward over all {cfg.n_experts} experts (one a site; a loop over experts would be "
+        f"{3 * cfg.n_experts}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: the expert sites did not run one packed launch a site")
+    del booted
+    _free()
+
+
+def phase_moe(dev, errs) -> tuple:
+    """Parity of the MoE path's kernels, one grok layer's moe_layer against
+    its plain path, then grok-1-314b and arctic-480b at their published
+    widths: (launches by JSON row, launches of the moe phase's own rows)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    failures = _parity_moe(dev, gen, errs) + _moe_layer_parity(dev)
+    if failures:
+        raise SystemExit(f"moe parity failed: {failures}")
+    keyed = _moe_launches()
+    totals: dict = {}
+    try:
+        _family_grok(dev, totals)
+        _family_arctic(dev, totals)
+    finally:
+        keyed.close()
+    own = {row: keyed.counts.get(key, 0) for row, key in MOE_ROWS.items()}
+    log(f"moe: phase {time.perf_counter() - t0:.1f} s; launches of the new rows {own}")
+    missing = [row for row, n in own.items() if n <= 0]
+    if missing:
+        raise SystemExit(f"moe: the serving runs never launched {missing}")
+    return totals, own
+
+
+# ---------------------------------------------------------------------------
+# 11. timings
 
 # ---------------------------------------------------------------------------
 class _Timer:
@@ -2041,6 +2355,7 @@ def phase_timings(dev) -> dict:
         rows[f"flash_attend_{SHORT[fmt]}_prefill"] = _time_flash(timer, fmt, fp, case, "prefill chunk")
     rows["flash_attention"] = _time_flash_attention(timer, gen, dev)
     _time_families(timer, gen, dev, rows)
+    _time_moe(timer, gen, dev, rows)
     return rows
 
 
@@ -2068,6 +2383,46 @@ def _time_families(timer, gen, dev, rows) -> None:
     case = _flash_case("kv_int8", dict(HD240, b=1), gen, dev, s=s, starts=[start], valid=[start + s])
     rows["flash_attend_int8_hd240_prefill"] = _time_flash(timer, "kv_int8", HD240, case, "prefill chunk")
     rows["flash_attention_hd240"] = _time_flash_attention(timer, gen, dev, ATTN_HD240[-1], 16)
+
+
+def _time_moe(timer, gen, dev, rows) -> None:
+    """The expert-batched packed_qmm at grok's gate and down (C 8 and 80)
+    and arctic's gate (C 8), ternary: kernel, plain version (the loop over
+    experts) and ``torch.bmm`` over the bf16-dequantized (E, K, N)
+    weights; the bound from x's int8 rows, every expert's packed weights
+    and scales and the f32 out, and 2 E C K N int8 operations.  The int8
+    router site (grok, N 8) at M = 4 as a qdense site."""
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.quant.formats import dequantize_weights, get_format
+
+    entry = get_format("ternary").kernel
+    for name, (kind, e, k, n, mode) in MOE_ROWS.items():
+        if kind != "packed":
+            continue
+        c = 80 if mode == "m>8" else 8
+        qt = _expert_qsite(e, k, n, "ternary", gen, dev)
+        x = (torch.randn((e, c, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        xq = quantize_rows(x.view(e * c, k))[0].view(e, c, k)
+        w_bf16 = torch.stack([dequantize_weights(qt.expert(i)).to(torch.bfloat16) for i in range(e)])
+        nbytes = xq.numel() + qt.nbytes() + e * c * n * 4
+        rows[name] = r = dict(
+            ms=timer(lambda: entry(xq, qt.packed, qt.scale_m, group=qt.group_size)),
+            plain_ms=timer(lambda: packed_qmm_ref(xq, qt.packed, qt.scale_m, decode="ternary", group=qt.group_size),
+                           iters=3, warmup=1),
+            library_ms=timer(lambda: torch.bmm(x, w_bf16)), **_bound(nbytes, 2 * e * c * k * n, INT8_OPS_PER_S))
+        log(f"time {name} (E={e} K={k} N={n} C={c} ternary, one launch): kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (by {r['bound_by']}; {nbytes / 1e9:.3f} GB), plain {r['plain_ms']:.4f} ms, "
+            f"torch.bmm bf16 {r['library_ms']:.4f} ms")
+        del qt, x, xq, w_bf16
+        torch.cuda.empty_cache()
+    k, n = ROUTER_SITES[0]
+    qt = _qsite(k, n, "int8", gen, dev)
+    rows["fused_qmm_int8_router"] = r = _time_site(timer, qt, dequantize_weights(qt).to(torch.bfloat16), "int8",
+                                                   "fused", M_ROWS, None, gen, dev)
+    log(f"time fused_qmm_int8_router (K={k} N={n} int8 M={M_ROWS}): kernel {r['ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.5f} ms (by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, torch.matmul bf16 "
+        f"{r['library_ms']:.4f} ms")
 
 
 def _time_split(timer, gen, dev) -> None:
@@ -2221,7 +2576,7 @@ KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it 
 
 def _kernel_line(errs, launches, rows) -> dict:
     out = []
-    for name in list(MODES) + list(FAMILY_ROWS):
+    for name in list(MODES) + list(FAMILY_ROWS) + list(MOE_ROWS):
         source, replaces = next(v for prefix, v in KERNEL_SOURCES.items() if name.startswith(prefix))
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2234,23 +2589,28 @@ def main() -> None:
     t_start = time.perf_counter()
     smi = phase_card()
     dev = torch.device("cuda", 0)
-    phase_build()
-    errs, launches = phase_parity(dev)
-    for k, v in phase_main(dev).items():
-        launches[k] += v
-    for k, v in phase_staged(dev).items():
-        launches[k] += v
-    for k, v in phase_formats(dev).items():
-        launches[k] += v
-    for k, v in phase_serve(dev).items():
-        launches[k] += v
-    for k, v in phase_artifact(dev).items():
-        launches[k] += v
-    totals, own = phase_families(dev, errs)
-    for k, v in totals.items():
-        launches[k] += v
-    launches.update(own)
-    rows = phase_timings(dev)
+    seconds = {}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args)
+        finally:
+            seconds[name] = round(time.perf_counter() - t0, 1)
+
+    timed("build", phase_build)
+    errs, launches = timed("parity", phase_parity, dev)
+    for name, phase in (("main", phase_main), ("staged", phase_staged), ("formats", phase_formats),
+                        ("serve", phase_serve), ("artifact", phase_artifact)):
+        for k, v in timed(name, phase, dev).items():
+            launches[k] += v
+    for name, phase in (("families", phase_families), ("moe", phase_moe)):
+        totals, own = timed(name, phase, dev, errs)
+        for k, v in totals.items():
+            launches[k] += v
+        launches.update(own)
+    rows = timed("timings", phase_timings, dev)
+    log(f"phase seconds {seconds}")
     line = _kernel_line(errs, launches, rows)
     if not all(math.isfinite(v) for k in line["kernels"] for v in k.values() if isinstance(v, float)):
         raise SystemExit("a measured number is not finite")
@@ -2261,7 +2621,8 @@ def main() -> None:
         f"lm_head at M={M_ROWS}; launches are summed over the kernels API call of the parity phase and the lockstep, "
         f"staged, format, serve, artifact and families runs; the families' rows (*_ragged*, *_k49152, *_hd240) are "
         f"single sites or calls, their launches those of their K or head_dim in the families runs (flash_attention: "
-        f"its hd 240 parity calls)")
+        f"its hd 240 parity calls); the moe rows (*_experts_*, fused_qmm_int8_router) are one launch over every "
+        f"expert of a site or the router site, their launches those of their shape in the moe phase's serving runs")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 
 The dense family is registered: ``qwen3-8b``, ``phi4-mini-3.8b``,
 ``qwen1.5-110b`` (qkv biases) and ``gemma3-12b`` (5:1 local:global sliding
-windows, head_dim 240).  The MoE, VLM, SSM, hybrid and encoder-decoder
-families of the reference come with later slices of the port.
+windows, head_dim 240); and the MoE family: ``grok-1-314b`` (8 experts)
+and ``arctic-480b`` (128 experts beside a dense residual MLP).  The VLM,
+SSM, hybrid and encoder-decoder families of the reference come with later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ _MODULES: Dict[str, str] = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen1.5-110b": "qwen1_5_110b",
     "gemma3-12b": "gemma3_12b",
+    "grok-1-314b": "grok_1_314b",
+    "arctic-480b": "arctic_480b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

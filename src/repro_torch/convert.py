@@ -8,7 +8,9 @@ pairs) into the port's, byte for byte.
 PTQ tree (numpy arrays or anything ``numpy.asarray`` accepts), with blocks
 stacked on a leading layer axis, and returns the port's tree: ``blocks`` as
 a list of per-layer dicts, QTensors rebuilt from ``packed`` / ``scale_m`` /
-``scale_e`` (uint32 words viewed as int32 -- the same bytes).  The
+``scale_e`` (uint32 words viewed as int32 -- the same bytes).  MoE expert
+leaves keep their expert axis: an (L, E, ...) QTensor becomes one (E, ...)
+QTensor a layer, an (L, E, K, N) float leaf (E, K, N) ones.  The
 reference's QTensor is read by its fields alone, so nothing of the JAX
 package is imported.
 """
@@ -28,19 +30,19 @@ def _is_qtensor(x) -> bool:
 
 
 def _tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.require(np.asarray(a), requirements="C")  # (np.ascontiguousarray would make a 0-d exponent 1-d)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     elif a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _qtensor(q, device, index=None) -> QTensor:
     pick = (lambda a: np.asarray(a)) if index is None else (lambda a: np.asarray(a)[index])
     return QTensor(
         _tensor(pick(q.packed), device), _tensor(pick(q.scale_m), device),
-        _tensor(pick(q.scale_e), device).to(torch.int32).reshape(()),
+        _tensor(pick(q.scale_e), device).to(torch.int32),  # 0-d, or (E,) for an expert site
         int(q.bits), int(q.group_size), tuple(int(d) for d in q.shape), str(q.fmt),
     )
 

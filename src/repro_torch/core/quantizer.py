@@ -35,6 +35,11 @@ class QTensor:
               words, or int8 (K, N) raw mantissas (int8, mx)
     scale_m : int8 (K/group_size, N) cluster scale mantissas
     scale_e : int32 0-d tensor, the shared scale exponent
+
+    An MoE expert site is one QTensor with a leading expert axis E on every
+    field -- packed (E, K/16, N), scale_m (E, K/g, N), scale_e (E,) -- each
+    expert quantized on its own, as the reference's vmapped quantizer does.
+    ``shape``, ``k`` and ``n`` stay those of one expert.
     """
 
     packed: torch.Tensor
@@ -56,6 +61,15 @@ class QTensor:
     @property
     def n_groups(self) -> int:
         return self.shape[0] // self.group_size
+
+    @property
+    def experts(self) -> int:
+        """E of an expert site (a leading axis on every field), else 0."""
+        return self.scale_e.shape[0] if self.scale_e.ndim else 0
+
+    def expert(self, i: int) -> "QTensor":
+        """Expert ``i`` of an expert site, as a 2-D QTensor (views)."""
+        return dataclasses.replace(self, packed=self.packed[i], scale_m=self.scale_m[i], scale_e=self.scale_e[i])
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()

@@ -14,6 +14,11 @@
 // raw sums -- the same plan, steps and float order, so the sums equal the
 // fused kernel's bit for bit, and the caller's exponent, bias and
 // activation reproduce the fused site.
+//
+// MoE expert sites: `experts` = E stacks E sites of one shape -- x_q
+// (E, M, K), weights (E, ...), scale mantissas (E, K / G, N), out (E, M, N)
+// -- into one launch of the same kernel, the expert a grid axis (the
+// reference's jax.vmap over its pallas_call); 1 for one site.
 #include "qmm_gemv.cuh"
 #include "qmm_gemv8.cuh"
 #include "qmm_mma.cuh"
@@ -22,31 +27,32 @@
 extern "C" int packed_qmm_launch(int decode, const void* xq, const void* w, const void* scale_m, void* out, int M,
                                  int K, int N, int group, int bk, int tps, int splits, int wn,
                                  int cpp, int items, int grid_x, int tpc, int pull, unsigned lut0, unsigned lut1,
-                                 unsigned lut2, unsigned lut3, size_t smem, void* stream) {
+                                 unsigned lut2, unsigned lut3, size_t smem, int experts, void* stream) {
   const qmm::gemv::Args a{xq, w, static_cast<const int8_t*>(scale_m), nullptr, nullptr, static_cast<float*>(out),
                           M, K, N, group, bk, 0, 8, 0, 0, tps, splits, wn, cpp, items, tpc, pull,
                           make_uint4(lut0, lut1, lut2, lut3)};
   return static_cast<int>(
-      qmm::gemv::launch_any<int8_t>(decode, a, grid_x, smem, static_cast<cudaStream_t>(stream)));
+      qmm::gemv::launch_any<int8_t>(decode, a, grid_x, smem, static_cast<cudaStream_t>(stream), experts));
 }
 
 // M <= 8, the int8 decode (see fused_qmm.cu).
 extern "C" int packed_qmm_int8_launch(const void* xq, const void* w, const void* scale_m, void* out, int M, int K,
-                                      int N, int group, int bk, int rpb, void* stream) {
+                                      int N, int group, int bk, int rpb, int experts, void* stream) {
   return static_cast<int>(qmm::gemv8::launch<int8_t>(xq, w, scale_m, nullptr, nullptr, out, M, K, N, group, bk, rpb,
-                                                     0, 8, 0, 0, static_cast<cudaStream_t>(stream)));
+                                                     0, 8, 0, 0, static_cast<cudaStream_t>(stream), experts));
 }
 
 // M > 8: the tensor-core tile over `splits` k-splits of `tps` k-tiles each
 // (ws, counters: the splits' scratch, unused when splits == 1; smem: the
-// wrapper's shared-memory plan).
+// wrapper's shared-memory plan; with experts, ws holds E scratches and
+// counters E x the blocks).
 extern "C" int packed_qmm_tile_launch(int decode, int group, const void* xq, const void* w, const void* scale_m,
                                       void* out, void* ws, void* counters, int M, int K, int N, int bk, int tps,
                                       int splits, unsigned lut0, unsigned lut1, unsigned lut2, unsigned lut3,
-                                      size_t smem, void* stream) {
+                                      size_t smem, int experts, void* stream) {
   const qmm::tile::Args a{static_cast<const int8_t*>(xq), w, static_cast<const int8_t*>(scale_m), nullptr,
                           nullptr, nullptr, static_cast<float*>(out), static_cast<float*>(ws),
                           static_cast<int*>(counters), M, K, N, bk, tps, splits, 0,
                           make_uint4(lut0, lut1, lut2, lut3)};
-  return static_cast<int>(qmm::tile::launch_any(decode, group, a, smem, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(qmm::tile::launch_any(decode, group, a, smem, static_cast<cudaStream_t>(stream), experts));
 }

@@ -57,6 +57,15 @@
 //   cluster barrier before the blocks move on.  Then
 //   x 2**(scale_e + e), + bias, activation (fused), or the raw sums
 //   (packed).
+// - MoE expert sites (packed_qmm over E experts, one launch): the grid's z
+//   is the expert, each expert's blocks offset x (E, M, K), the packed
+//   weights (E, ...), the scale mantissas (E, K / G, N) and out (E, M, N)
+//   by whole experts (at_expert) and then run the single-site kernel
+//   unchanged -- the reference's jax.vmap over pallas_call, a batch axis of
+//   the grid -- so each expert's sums are bit for bit its own launch's.  The
+//   wrapper plans for E x its blocks (gemv_plan at sms / E).  The expert
+//   launch is an instance of its own (kExperts), so one site's kernel is the
+//   one it was before the expert axis, as in qmm_gemv8.cuh.
 // - Any K that is a multiple of the cluster: the k-tiles start at 0 and the
 //   last one is ragged (gemma3's 3840 = 7 x 512 + 256), so its piece holds
 //   fewer clusters (whole-tile pieces) or the tile fewer pieces (single
@@ -220,10 +229,28 @@ __device__ __forceinline__ float finish(const Args& a, float o, float e, int n, 
   return activate(y, a.act);
 }
 
-// T: float / bf16 x (the fused site) or int8_t (packed: x already quantized).
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm) gemv_kernel(const Args a) {
+// Expert blockIdx.z of an expert-stacked launch (see the header; packed
+// only): a at that expert's x, weights, scale mantissas and out; a itself
+// for one site.
+template <bool kExperts, int V>
+__device__ __forceinline__ Args at_expert(Args a) {
   using P = Map<V>;
+  if constexpr (kExperts) {
+    const size_t e = blockIdx.z;
+    a.x = static_cast<const int8_t*>(a.x) + e * a.M * a.K;
+    a.w = static_cast<const unsigned char*>(a.w) + e * (a.K / P::kWordK) * a.N * (P::kDec == kInt8 ? 1 : 4);
+    a.sm += e * (a.K / a.group) * a.N;
+    a.out += e * a.M * a.N;
+  }
+  return a;
+}
+
+// T: float / bf16 x (the fused site) or int8_t (packed: x already quantized).
+// kExperts: an expert-stacked launch (packed only).
+template <typename T, int V, bool kExperts>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) gemv_kernel(const Args args) {
+  using P = Map<V>;
+  const Args a = at_expert<kExperts, V>(args);
   constexpr bool kFused = !std::is_same<T, int8_t>::value;
   constexpr int kRing = P::kRing, kSK = P::kSK, kRegs = P::kRegs;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -544,10 +571,9 @@ inline int variant(int decode, int group) {
   }
 }
 
-template <typename T, int V>
-cudaError_t launch(const Args& a, int grid_x, size_t smem, cudaStream_t stream) {
-  if (smem != smem_bytes<V>(a)) return cudaErrorInvalidValue;  // the wrapper's plan disagrees with the kernel's
-  auto kernel = gemv_kernel<T, V>;
+template <typename T, int V, bool kExperts>
+cudaError_t launch_kernel(const Args& a, int grid_x, size_t smem, cudaStream_t stream, int experts) {
+  auto kernel = gemv_kernel<T, V, kExperts>;
   static bool configured = false;
   const cudaError_t err = raise_smem_cap(kernel, configured);
   if (err != cudaSuccess) return err;
@@ -555,7 +581,7 @@ cudaError_t launch(const Args& a, int grid_x, size_t smem, cudaStream_t stream) 
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = 1, cluster.val.clusterDim.y = a.splits, cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid_x, a.splits);
+  cfg.gridDim = dim3(grid_x, a.splits, experts);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -564,18 +590,28 @@ cudaError_t launch(const Args& a, int grid_x, size_t smem, cudaStream_t stream) 
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
+template <typename T, int V>
+cudaError_t launch(const Args& a, int grid_x, size_t smem, cudaStream_t stream, int experts) {
+  if (smem != smem_bytes<V>(a)) return cudaErrorInvalidValue;  // the wrapper's plan disagrees with the kernel's
+  if constexpr (std::is_same<T, int8_t>::value) {
+    if (experts > 1) return launch_kernel<T, V, true>(a, grid_x, smem, stream, experts);
+  }
+  return launch_kernel<T, V, false>(a, grid_x, smem, stream, 1);
+}
+
+// experts: E of an expert-stacked launch (grid z), 1 for one site.
 template <typename T>
-cudaError_t launch_any(int decode, const Args& a, int grid_x, size_t smem, cudaStream_t s) {
+cudaError_t launch_any(int decode, const Args& a, int grid_x, size_t smem, cudaStream_t s, int experts = 1) {
   switch (variant(decode, a.group)) {
-    case kT64: return launch<T, kT64>(a, grid_x, smem, s);
-    case kT32: return launch<T, kT32>(a, grid_x, smem, s);
-    case kT16: return launch<T, kT16>(a, grid_x, smem, s);
-    case kI4_32: return launch<T, kI4_32>(a, grid_x, smem, s);
-    case kI4_16: return launch<T, kI4_16>(a, grid_x, smem, s);
-    case kN4_32: return launch<T, kN4_32>(a, grid_x, smem, s);
-    case kN4_16: return launch<T, kN4_16>(a, grid_x, smem, s);
-    case kI8_32: return launch<T, kI8_32>(a, grid_x, smem, s);
-    case kI8_16: return launch<T, kI8_16>(a, grid_x, smem, s);
+    case kT64: return launch<T, kT64>(a, grid_x, smem, s, experts);
+    case kT32: return launch<T, kT32>(a, grid_x, smem, s, experts);
+    case kT16: return launch<T, kT16>(a, grid_x, smem, s, experts);
+    case kI4_32: return launch<T, kI4_32>(a, grid_x, smem, s, experts);
+    case kI4_16: return launch<T, kI4_16>(a, grid_x, smem, s, experts);
+    case kN4_32: return launch<T, kN4_32>(a, grid_x, smem, s, experts);
+    case kN4_16: return launch<T, kN4_16>(a, grid_x, smem, s, experts);
+    case kI8_32: return launch<T, kI8_32>(a, grid_x, smem, s, experts);
+    case kI8_16: return launch<T, kI8_16>(a, grid_x, smem, s, experts);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -53,6 +53,15 @@
 // element, so no other thread touches it), or, for a later split, to its
 // slot of the scratch, and restarts at 0.
 //
+// An MoE expert site (packed_qmm over E experts, one launch) stacks the
+// experts on the grid's y, E x the row blocks: a block finds its expert
+// there; the Loader starts at that expert's x (E, M, K), weights (E, ...)
+// and scale mantissas (E, K / G, N), the epilogue at its out (E, M, N) and
+// split scratch; the arrival counters are one per block column and row of
+// the whole grid.  The reference vmaps its pallas_call over the experts, a
+// batch axis of the grid: each expert's sums are bit for bit its own
+// launch's.
+//
 // Sites whose output blocks fill at most half the SMs (chunks of up to 128
 // rows) split their k-tiles over grid.z when the scratch stays small (the
 // wrapper's tile_plan): the first split
@@ -196,18 +205,21 @@ struct Loader {
   int a_k[kAIt], w_k[kWIt], s_k;  // k of each copy within its stage
   int k_left;                     // K - k_begin: copies at or past it are zero-filled
 
-  __device__ __forceinline__ Loader(const Args& a, int k_begin, int row0, int col0) {
+  __device__ __forceinline__ Loader(const Args& a, int ex, int k_begin, int row0, int col0) {
     const int tid = threadIdx.x;
     k_left = a.K - k_begin;
+    const int8_t* xq = a.xq + static_cast<size_t>(ex) * a.M * a.K;  // expert ex's rows, weights and scales
+    const unsigned char* w = static_cast<const unsigned char*>(a.w) +
+        static_cast<size_t>(ex) * (D == kInt8 ? a.K : a.K / Layout<D>::kUnitK * 4) * a.N;
+    const int8_t* sm = a.sm + static_cast<size_t>(ex) * (a.K / G) * a.N;
 #pragma unroll
     for (int it = 0; it < kAIt; ++it) {
       const int i = tid + it * kThreads, r = i / P::kChunks, c = i % P::kChunks, m = row0 + r;
       a_k[it] = 16 * c;
       a_ok[it] = (kAc % kThreads == 0 || i < kAc) && m < a.M;
-      a_src[it] = a_ok[it] ? a.xq + static_cast<size_t>(m) * a.K + k_begin + 16 * c : a.xq;
+      a_src[it] = a_ok[it] ? xq + static_cast<size_t>(m) * a.K + k_begin + 16 * c : a.xq;
       a_dst[it] = tile_off<KS>(r, c);
     }
-    const unsigned char* w = static_cast<const unsigned char*>(a.w);
 #pragma unroll
     for (int it = 0; it < kWIt; ++it) {
       const int i = tid + it * kThreads;
@@ -229,7 +241,7 @@ struct Loader {
     const int r = tid / (kBN / 4), c = tid % (kBN / 4);
     s_ok = tid < kSc && col0 + 4 * c < a.N;
     s_k = r * G;
-    s_src = a.sm + static_cast<size_t>(k_begin / G + r) * a.N + col0 + 4 * c;
+    s_src = sm + static_cast<size_t>(k_begin / G + r) * a.N + col0 + 4 * c;
     s_dst = P::kOffS + r * kBN + 4 * c;
     s_step = static_cast<size_t>(P::kClusters) * a.N;
   }
@@ -347,7 +359,8 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN, z = blockIdx.z;
+  const int mblocks = (a.M + kBM - 1) / kBM, ex = blockIdx.y / mblocks;  // the expert (see the header), else 0
+  const int row0 = (blockIdx.y - ex * mblocks) * kBM, col0 = blockIdx.x * kBN, z = blockIdx.z;
   const int nk = (a.K + a.bk - 1) / a.bk;
   const int t_begin = z * a.tps, t_end = min(nk, t_begin + a.tps);
   const int k_begin = t_begin * a.bk;
@@ -368,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
   }
   // this thread's output sums: element (mi, ni, e) at os[((mi * kNi + ni) * 4 + e) * kThreads]
   float* os = reinterpret_cast<float*>(smem + P::kOffO) + tid;
-  const Loader<D, G> ld(a, k_begin, row0, col0);
+  const Loader<D, G> ld(a, ex, k_begin, row0, col0);
 
   float acc[kMi][kNi][4];
 #pragma unroll
@@ -459,7 +472,7 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
             }
       } else {
         // tile t = t_begin + tl - 1 goes to slot t - tps + 1
-        float* ws = a.ws + static_cast<size_t>((z - 1) * a.tps + tl) * plane;
+        float* ws = a.ws + (static_cast<size_t>(ex) * (1 + nk - a.tps) + (z - 1) * a.tps + tl) * plane;
 #pragma unroll
         for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
@@ -484,6 +497,8 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
   }
 
   const float se = a.e != nullptr ? static_cast<float>(a.scale_e[0]) : 0.0f;
+  float* const out = a.out + ex * plane;  // this expert's output and split scratch
+  float* const ws0 = a.splits == 1 ? nullptr : a.ws + static_cast<size_t>(ex) * (1 + nk - a.tps) * plane;
   if (a.splits == 1 || z == 0) {
 #pragma unroll
     for (int mi = 0; mi < kMi; ++mi)
@@ -497,9 +512,9 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
           const float o1 = os[((mi * kNi + ni) * 4 + 2 * h + 1) * kThreads];
           const size_t i = static_cast<size_t>(m) * a.N + n;
           if (a.splits == 1)
-            *reinterpret_cast<float2*>(a.out + i) = make_float2(finish(a, o0, m, n, se), finish(a, o1, m, n + 1, se));
+            *reinterpret_cast<float2*>(out + i) = make_float2(finish(a, o0, m, n, se), finish(a, o1, m, n + 1, se));
           else
-            *reinterpret_cast<float2*>(a.ws + i) = make_float2(o0, o1);
+            *reinterpret_cast<float2*>(ws0 + i) = make_float2(o0, o1);
         }
     if (a.splits == 1) return;
   }
@@ -522,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
     for (int it = 0; it < kItems; ++it) {
       const int i = tid + it * kThreads, m = row0 + i / (kBN / 4), n = col0 + 4 * (i % (kBN / 4));
       if (m < a.M && n < a.N)
-        v[it] = __ldcg(reinterpret_cast<const float4*>(a.ws + sl * plane + static_cast<size_t>(m) * a.N + n));
+        v[it] = __ldcg(reinterpret_cast<const float4*>(ws0 + sl * plane + static_cast<size_t>(m) * a.N + n));
     }
 #pragma unroll
     for (int it = 0; it < kItems; ++it)
@@ -534,7 +549,7 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
   for (int it = 0; it < kItems; ++it) {
     const int i = tid + it * kThreads, m = row0 + i / (kBN / 4), n = col0 + 4 * (i % (kBN / 4));
     if (m < a.M && n < a.N)
-      *reinterpret_cast<float4*>(a.out + static_cast<size_t>(m) * a.N + n) =
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(m) * a.N + n) =
           make_float4(finish(a, o[it].x, m, n, se), finish(a, o[it].y, m, n + 1, se),
                       finish(a, o[it].z, m, n + 2, se), finish(a, o[it].w, m, n + 3, se));
   }
@@ -542,35 +557,36 @@ __global__ void __launch_bounds__(kThreads, 1) qmm_tile_kernel(const Args a) {
 }
 
 template <int D, int G>
-cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
+cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream, int experts) {
   if (smem != static_cast<size_t>(Plan<D, G>::kSmem)) return cudaErrorInvalidValue;  // the wrapper's sizing disagrees
   auto kernel = qmm_tile_kernel<D, G>;
   static bool configured = false;
   const cudaError_t err = raise_smem_cap(kernel, configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + kBN - 1) / kBN, (a.M + kBM - 1) / kBM, a.splits);
+  const dim3 grid((a.N + kBN - 1) / kBN, (a.M + kBM - 1) / kBM * experts, a.splits);
   kernel<<<grid, kThreads, Plan<D, G>::kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_group(int group, const Args& a, size_t smem, cudaStream_t s) {
+cudaError_t launch_group(int group, const Args& a, size_t smem, cudaStream_t s, int experts) {
   switch (group) {
-    case 16: return launch<D, 16>(a, smem, s);
-    case 32: return launch<D, 32>(a, smem, s);
-    case 64: return launch<D, 64>(a, smem, s);
-    case 128: return launch<D, 128>(a, smem, s);
+    case 16: return launch<D, 16>(a, smem, s, experts);
+    case 32: return launch<D, 32>(a, smem, s, experts);
+    case 64: return launch<D, 64>(a, smem, s, experts);
+    case 128: return launch<D, 128>(a, smem, s, experts);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The tile for decode mode `decode` (Decode) and cluster length `group`;
-// `smem`, the wrapper's shared-memory plan, must be the kernel's Plan.
-inline cudaError_t launch_any(int decode, int group, const Args& a, size_t smem, cudaStream_t s) {
+// `smem`, the wrapper's shared-memory plan, must be the kernel's Plan;
+// `experts`: E of an expert-stacked launch, 1 for one site.
+inline cudaError_t launch_any(int decode, int group, const Args& a, size_t smem, cudaStream_t s, int experts = 1) {
   switch (decode) {
-    case kTernary: return launch_group<kTernary>(group, a, smem, s);
-    case kInt8: return launch_group<kInt8>(group, a, smem, s);
-    case kLut4: return launch_group<kLut4>(group, a, smem, s);
+    case kTernary: return launch_group<kTernary>(group, a, smem, s, experts);
+    case kInt8: return launch_group<kInt8>(group, a, smem, s, experts);
+    case kLut4: return launch_group<kLut4>(group, a, smem, s, experts);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -116,10 +116,11 @@ def counted(entry):
 
 def count_launch(entry, x) -> None:
     """One launch on ``entry`` if ``x`` lies on the card (the wrapper then
-    launched the kernel or raised; a CPU tensor ran the plain version)."""
+    launched the kernel or raised; a CPU tensor ran the plain version).
+    The mode goes by x's rows, an expert's rows for (E, C, K) x."""
     if x.is_cuda:
         entry.launches += 1
-        entry.mode_launches["m<=8" if x.shape[0] <= GEMV_MAX_ROWS else "m>8"] += 1
+        entry.mode_launches["m<=8" if x.shape[-2] <= GEMV_MAX_ROWS else "m>8"] += 1
 
 
 _COUNTERS: Dict = {}  # (device, stream) -> zeroed int32 arrival counters, reset by the kernels after use

@@ -416,28 +416,31 @@ def check_tile(k: int, group: int, block_k: int) -> None:
                          f"k-tiles of whole {ks}-element stages; got group={group} K={k} block_k={block_k}")
 
 
-def tile_scratch(dev, plan: dict, stream: int):
-    """(ws, counters) of a split launch, (None, None) otherwise."""
+def tile_scratch(dev, plan: dict, stream: int, experts: int = 1):
+    """(ws, counters) of a split launch, (None, None) otherwise; an
+    expert-stacked launch takes ``experts`` times both."""
     if plan["splits"] == 1:
         return None, None
-    return (torch.empty(plan["ws_floats"], dtype=torch.float32, device=dev),
-            _build.arrival_counters(dev, stream, plan["blocks"]))
+    return (torch.empty(experts * plan["ws_floats"], dtype=torch.float32, device=dev),
+            _build.arrival_counters(dev, stream, experts * plan["blocks"]))
 
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def check_weights(m: int, k: int, packed, scale_m, *, decode: str, group: int, block_k: int):
-    """Raise on weights or a tiling the kernels do not take; returns N."""
+def check_weights(m: int, k: int, packed, scale_m, *, decode: str, group: int, block_k: int, lead: tuple = ()):
+    """Raise on weights or a tiling the kernels do not take; returns N.
+    ``lead``: the weights' leading shape, (E,) for an expert site's stack."""
     if decode not in DECODES:
         raise ValueError(f"unknown decode {decode!r}; supported: {DECODES}")
-    n, bk = packed.shape[1], min(block_k, k)
+    n, bk, lead = packed.shape[-1], min(block_k, k), tuple(lead)
     wdtype, wrows = (torch.int8, k) if decode == "int8" else (torch.int32, k // PER_WORD[decode])
-    if packed.dtype != wdtype or packed.shape != (wrows, n):
-        raise ValueError(f"{decode} weights must be {wdtype} {(wrows, n)}, got {packed.dtype} {tuple(packed.shape)}")
-    if scale_m.dtype != torch.int8 or scale_m.shape != (k // group, n):
-        raise ValueError(f"scale_m must be int8 {(k // group, n)}, got {scale_m.dtype} {tuple(scale_m.shape)}")
+    if packed.dtype != wdtype or packed.shape != lead + (wrows, n):
+        raise ValueError(f"{decode} weights must be {wdtype} {lead + (wrows, n)}, got {packed.dtype} "
+                         f"{tuple(packed.shape)}")
+    if scale_m.dtype != torch.int8 or scale_m.shape != lead + (k // group, n):
+        raise ValueError(f"scale_m must be int8 {lead + (k // group, n)}, got {scale_m.dtype} {tuple(scale_m.shape)}")
     if k % group or bk % group or group % _UNIT_K[decode] or n % 4:
         raise ValueError(f"unsupported tiling K={k} block_k={bk} group={group} N={n} for {decode}")
     if uses_tile(m):

@@ -102,7 +102,7 @@ def weight_mb(qparams, dtype: torch.dtype):
     fp = q = 0
     for leaf in _leaves(qparams):
         if isinstance(leaf, QTensor):
-            fp += int(np.prod(leaf.shape)) * item
+            fp += max(leaf.experts, 1) * int(np.prod(leaf.shape)) * item
             q += leaf.nbytes()
         else:
             fp += leaf.numel() * item

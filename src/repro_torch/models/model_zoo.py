@@ -1,6 +1,8 @@
-"""Model API for the dense family (counterpart of
+"""Model API for the dense and MoE families (counterpart of
 ``repro/models/model_zoo.py``): qwen3-8b, phi4-mini-3.8b, qwen1.5-110b
-and gemma3-12b (``window_schedule``'s local and global layers).
+and gemma3-12b (``window_schedule``'s local and global layers);
+grok-1-314b and arctic-480b (``models/moe.py``, arctic with its dense
+residual MLP).
 
 ``build_model(cfg)`` returns a ``ModelApi`` bound to a device -- the card
 unless the caller passes ``device="cpu"``; with no card and no explicit
@@ -75,10 +77,11 @@ def insert_prefix(cache, prefix, slot: int):
 def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None) -> ModelApi:
     dev = resolve_device(device)
     ctx = ctx or make_ctx(cfg)
-    if cfg.family != "dense" or cfg.n_experts or cfg.mrope:
+    if cfg.family not in ("dense", "moe") or cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder family is ported (global and sliding-window attention, qkv "
-            f"biases); MoE comes next (ROADMAP Queue A7.2), then the other families")
+            f"{cfg.name}: only the dense and MoE decoder families are ported (global and sliding-window "
+            f"attention, qkv biases, top-k experts); the VLM comes next (ROADMAP Queue A7.3), then the SSM, "
+            f"hybrid and enc-dec families (A7)")
     return ModelApi(
         cfg, ctx, dev,
         init=lambda gen: transformer.init_lm(gen, cfg, dev),

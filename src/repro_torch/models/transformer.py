@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense family (counterpart of
-``repro/models/transformer.py``; MoE and M-RoPE come with their families).
+"""Decoder-only LM, dense and MoE families (counterpart of
+``repro/models/transformer.py``; M-RoPE comes with the VLM family).  A
+block's MLP is ``models/moe.py``'s layer where the config has experts.
 
 The reference stacks layers on a leading axis and scans; the port keeps
 ``params["blocks"]`` as a list of per-layer dicts and loops in Python.  The
@@ -18,7 +19,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import kv_cache, layers
+from repro_torch.models import kv_cache, layers, moe
 from repro_torch.quant.plan import QuantCtx
 
 
@@ -38,12 +39,16 @@ def window_schedule(cfg, seq_len: int) -> Optional[torch.Tensor]:
 
 
 def init_block(gen, cfg, dtype, device, leaf=layers.keep) -> Dict[str, Any]:
-    return {
+    p = {
         "ln1": layers.init_rmsnorm(cfg.d_model, dtype, device, "blocks/ln1", leaf),
         "attn": attn_lib.init_attention(gen, cfg, dtype, device, "blocks/attn", leaf),
         "ln2": layers.init_rmsnorm(cfg.d_model, dtype, device, "blocks/ln2", leaf),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device, "blocks/mlp", leaf),
     }
+    if cfg.n_experts:
+        p["moe"] = moe.init_moe(gen, cfg, dtype, device, "blocks/moe", leaf)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device, "blocks/mlp", leaf)
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg, device, leaf=layers.keep) -> Dict[str, Any]:
@@ -67,6 +72,8 @@ def _block_apply(bp, x, positions, cfg, ctx: QuantCtx, window=None, cache=None, 
     )
     x = x + a
     h = layers.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    if cfg.n_experts:
+        return x + moe.moe_layer(bp["moe"], h, "blocks/moe", cfg, ctx), cache
     return x + layers.mlp(bp["mlp"], h, "blocks/mlp", ctx), cache
 
 

@@ -92,9 +92,9 @@ def quantize_leaf(path: str, key: str, val, plan: QuantPlan):
     if is_projection_site(key, val) and isinstance(val, torch.Tensor):
         prec = plan.resolve(path)
         if _quantizable(prec, val.shape[-2]):
+            # quantize_weights casts to float32 itself, an expert at a time: no float32 copy of a whole stack
             return quantize_weights(
-                val.to(torch.float32), prec.w_bits, prec.group_size,
-                prec.filter_size, prec.refit_scale, fmt=prec.fmt,
+                val, prec.w_bits, prec.group_size, prec.filter_size, prec.refit_scale, fmt=prec.fmt,
             )
         return val
     if key == "table" and isinstance(val, torch.Tensor):
@@ -103,7 +103,8 @@ def quantize_leaf(path: str, key: str, val, plan: QuantPlan):
 
 
 def quantize_params(params, plan: QuantPlan):
-    """Walk the tree; projection ``w`` leaves become QTensors."""
+    """Walk the tree; projection ``w`` leaves become QTensors (an (E, K, N)
+    expert stack one QTensor with a leading E axis)."""
 
     def walk(node, path):
         if isinstance(node, list):

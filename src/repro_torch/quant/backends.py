@@ -49,10 +49,13 @@ def quantize_activations(x: torch.Tensor, bits: int = 8, *, exponent=None, backe
 
 
 def _cuda_backend(xq: torch.Tensor, xe, qt: QTensor, block_k: int) -> torch.Tensor:
+    """The packed launch, then 2**(scale_e + x_e): per expert for an expert
+    site's (E, C, K) xq and (E, C, 1) or 0-d xe."""
     from repro_torch.quant.formats import format_of
 
     out = format_of(qt).kernel(xq, qt.packed, qt.scale_m, group=qt.group_size, block_k=block_k)
-    return out * dfp.exp2i(qt.scale_e + xe)
+    scale_e = qt.scale_e.reshape(-1, 1, 1) if qt.experts else qt.scale_e
+    return out * dfp.exp2i(scale_e + xe)
 
 
 def _unfused(xm: torch.Tensor, qt: QTensor, name: str, act_bits: int, act_exponent, block_k: int):
@@ -61,11 +64,29 @@ def _unfused(xm: torch.Tensor, qt: QTensor, name: str, act_bits: int, act_expone
     return _cuda_backend(xq, xe, qt, block_k) if name == "cuda" else qmatmul_ref(xq, xe, qt)
 
 
+def _expert_qmatmul(x: torch.Tensor, qt: QTensor, name: str, act_bits: int, act_exponent,
+                    block_k: int) -> torch.Tensor:
+    """x (E, C, K) x an expert site's QTensor -> (E, C, N) f32: each expert
+    as the reference's vmapped ``qmatmul`` computes it.  ``cuda``: the
+    static exponent or ONE ``quantize_rows`` over all E * C rows (its
+    exponents are per row, so they equal the per-expert ones), ONE packed
+    launch over every expert, then 2**(scale_e[e] + x_e) per expert.
+    ``ref`` loops over the experts through the oracle."""
+    e, c, k = x.shape
+    if name == "ref":
+        return torch.stack([_unfused(x[i], qt.expert(i), name, act_bits, act_exponent, block_k) for i in range(e)])
+    xq, xe = quantize_activations(x.reshape(e * c, k), act_bits, exponent=act_exponent, backend=name)
+    return _cuda_backend(xq.reshape(e, c, k), xe.reshape(e, c, 1) if xe.ndim else xe, qt, block_k)
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor, *, backend: str = "auto", act_bits: int = 8,
             act_exponent=None, block_k: int = 512) -> torch.Tensor:
     """x [..., K] (float) x QTensor (K, N) -> [..., N] f32: 8-bit DFP
     activations (per-row dynamic exponents, or the static ``act_exponent``),
-    int32 cluster sums, one scale multiply per cluster."""
+    int32 cluster sums, one scale multiply per cluster.  An expert site's
+    QTensor (``qt.experts`` = E) takes x (E, C, K) -> (E, C, N)."""
+    if qt.experts:
+        return _expert_qmatmul(x.contiguous(), qt, resolve_backend(backend, x), act_bits, act_exponent, block_k)
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1]).contiguous()
     out = _unfused(xm, qt, resolve_backend(backend, x), act_bits, act_exponent, block_k)

@@ -193,7 +193,13 @@ def quantize_weights(
     """Quantize a (K, N) projection with the paper's cluster scheme; the
     scale table is re-quantized to 8-bit DFP.  A format with a fixed block
     (mx) overrides ``group_size``.  Stamped with the resolved format name,
-    as in the reference."""
+    as in the reference.  An (E, K, N) expert stack quantizes each expert
+    on its own (its own shared exponent), as the reference's vmap does,
+    into one QTensor with a leading E axis."""
+    if w.ndim == 3:
+        qts = [quantize_weights(we, bits, group_size, filter_size, refit_scale, fmt) for we in w]
+        return dataclasses.replace(qts[0], **{f: torch.stack([getattr(q, f) for q in qts])
+                                              for f in ("packed", "scale_m", "scale_e")})
     k, n = w.shape
     f = get_format(fmt) if fmt else format_for_bits(bits)
     group_size = f.block_size or group_size

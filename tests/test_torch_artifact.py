@@ -2,8 +2,9 @@
 the reference writes, the port reads bit for bit in every weight format and
 in bfloat16; the port writes the reference's files byte for byte and the
 reference serves them; the port's cold start serves what it quantized; the
-tamper, corruption and IO-flake cases fall back or fail closed as the
-reference's tests require."""
+MoE family's (grok-1-314b smoke) stacked expert sites both ways, its
+reference artifact cold-started by both engines; the tamper, corruption and
+IO-flake cases fall back or fail closed as the reference's tests require."""
 import dataclasses
 import hashlib
 import json
@@ -24,6 +25,9 @@ from repro.models import build_model as jbuild
 from repro.models import load_servable as jload_servable
 from repro.models import quantize_and_plan as jquantize_and_plan
 from repro.models import save_servable as jsave_servable
+from repro.serving import Request as JRequest
+from repro.serving import ServingEngine as JEngine
+from repro.serving import StagedEngine as JStagedEngine
 from repro_torch import configs as tconfigs
 from repro_torch.configs.base import QuantConfig as TQuantConfig
 from repro_torch.configs.base import config_from_dict
@@ -216,6 +220,58 @@ def test_reference_launcher_backend_needs_a_port_backend(tmp_path):
         load_servable(str(tmp_path), device="cpu")
     api, _, _ = load_servable(str(tmp_path), device="cpu", backend="ref")
     assert api.ctx.backend == "ref" and api.ctx.plan.site_paths == plan.site_paths
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: (L, E, ...) expert QTensors (the reference's
+# tests/test_artifact.py family "moe").
+# ---------------------------------------------------------------------------
+MOE = "grok-1-314b"
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    """(cfg, qparams, plan, plan-bound api) of the reference's ternary grok smoke model."""
+    cfg = jconfigs.get_smoke(MOE, JQuantConfig(**_quant("ternary")))
+    api = jbuild(cfg)
+    qparams, plan, qapi = jquantize_and_plan(api, api.init(jax.random.PRNGKey(0)))
+    return cfg, qparams, plan, qapi
+
+
+def test_moe_port_artifact_is_byte_identical(moe_model, tmp_path):
+    """The port writes the reference's files, manifest included, for a
+    model whose expert sites stack (L, E, ...) QTensors; and reads them
+    back per layer as (E, ...) ones, bit for bit."""
+    cfg, qparams, plan, qapi = moe_model
+    jsave_servable(str(tmp_path / "jax"), qapi, qparams, plan)
+    api = tbuild(config_from_dict(jconfig_to_dict(cfg)), device="cpu")
+    save_servable(str(tmp_path / "port"), api, params_from_jax(qparams, device="cpu"),
+                  QuantPlan.from_json(plan.to_json()))
+    want, got = _files(tmp_path / "jax" / STEP0), _files(tmp_path / "port" / STEP0)
+    assert len(got) == 3 * 9 + 4 + 2 and got == want  # 9 QTensor nodes, 4 arrays, plan and manifest
+    _, loaded, _ = load_servable(str(tmp_path / "port"), device="cpu")
+    _assert_bit_exact(loaded, params_from_jax(qparams, device="cpu"))
+    assert loaded["blocks"][1]["moe"]["experts"]["down"]["w"].scale_e.shape == (cfg.n_experts,)
+
+
+@pytest.mark.parametrize("engine,jengine", [(ServingEngine, JEngine), (StagedEngine, JStagedEngine)],
+                         ids=["lockstep", "staged"])
+def test_moe_reference_artifact_cold_starts_both_engines(moe_model, engine, jengine, tmp_path):
+    """The reference's grok artifact, cold-started by each of the port's
+    engines: the tokens of the port's engine over the same weights in
+    memory, and of the reference's engine."""
+    cfg, qparams, plan, qapi = moe_model
+    jsave_servable(str(tmp_path), qapi, qparams, plan)
+
+    def tokens(eng):
+        for i, p in enumerate([[5, 9, 2], [11, 4, 8, 1, 6]]):
+            eng.submit((JRequest if isinstance(eng, jengine) else Request)(uid=i, prompt=p, max_new_tokens=4))
+        return {r.uid: r.output for r in eng.run()}
+
+    cold = tokens(engine.from_artifact(str(tmp_path), device="cpu", n_slots=2, max_len=16))
+    api = tbuild(config_from_dict(jconfig_to_dict(cfg)), device="cpu").with_plan(QuantPlan.from_json(plan.to_json()))
+    warm = tokens(engine(api, params_from_jax(qparams, device="cpu"), n_slots=2, max_len=16))
+    assert cold == warm == tokens(jengine(qapi, qparams, n_slots=2, max_len=16)) and len(cold) == 2
 
 
 # ---------------------------------------------------------------------------

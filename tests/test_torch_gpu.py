@@ -708,3 +708,83 @@ def test_flash_attention_hd_240_matches_plain(dev, dtype, atol):
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# MoE: the expert-batched packed_qmm (one launch over every expert) and the
+# router site's few columns.
+# ---------------------------------------------------------------------------
+EXPERT_ROUTES = [  # (format, E, K, N, C): the GEMV, the int8 loop (N / 128 >= 132), the tile
+    ("ternary", 4, 1024, 384, 8), ("int4", 8, 512, 256, 3), ("nf4", 4, 1024, 192, 8), ("mx", 4, 768, 256, 5),
+    ("int8", 2, 256, 16896, 8), ("int8", 4, 512, 256, 8),
+    ("ternary", 4, 1024, 384, 80), ("int4", 3, 512, 1040, 17), ("nf4", 8, 512, 256, 132), ("mx", 4, 768, 256, 24),
+    ("int8", 4, 512, 256, 256),
+]
+
+
+@pytest.mark.parametrize("fmt,e,k,n,c", EXPERT_ROUTES)
+def test_expert_packed_qmm_one_launch_bit_exact(dev, fmt, e, k, n, c):
+    """x_q (E, C, K) over an expert site's stacked weights in ONE launch:
+    bit for bit the plain per-expert loop and each expert's own launch,
+    with the capacity buffer's zero rows."""
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.quant.formats import get_format
+
+    gen = torch.Generator(device=dev).manual_seed(e * c)
+    qt = quantize_weights(torch.randn((e, k, n), generator=gen, device=dev) * k**-0.5, FMT_BITS[fmt], 64, fmt=fmt)
+    xq = torch.randint(-127, 128, (e, c, k), generator=gen, device=dev, dtype=torch.int8)
+    xq[:, c // 2 + 1:] = 0
+    entry, decode = get_format(fmt).kernel, "int8" if fmt == "mx" else fmt
+    before = entry.launches
+    got = entry(xq, qt.packed, qt.scale_m, group=qt.group_size)
+    assert entry.launches == before + 1
+    want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size)
+    alone = torch.stack([entry(xq[i].contiguous(), qt.packed[i].contiguous(), qt.scale_m[i].contiguous(),
+                               group=qt.group_size) for i in range(e)])
+    torch.cuda.synchronize()
+    assert got.shape == (e, c, n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), alone.view(torch.int32))
+
+
+def test_expert_qmatmul_on_cuda_is_one_quantize_and_one_packed_launch(dev):
+    """The expert qmatmul: one quantize_rows over every E * C row and one
+    packed launch, equal to the ref backend's per-expert loop to float32
+    rounding (other cluster orders)."""
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.quant import qmatmul
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    qt = quantize_weights(torch.randn((8, 1024, 256), generator=gen, device=dev) * 0.03, 2, 64)
+    x = torch.randn((8, 16, 1024), generator=gen, device=dev).to(torch.bfloat16)
+    x[:, 9:] = 0
+    before = (quantize_rows.launches, ternary_matmul.launches)
+    got = qmatmul(x, qt, backend="cuda")
+    assert (quantize_rows.launches, ternary_matmul.launches) == (before[0] + 1, before[1] + 1)
+    want = qmatmul(x, qt, backend="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [8, 128])
+@pytest.mark.parametrize("m", [1, 4, 8, 256])
+def test_router_site_few_columns_bit_exact(dev, n, m):
+    """The int8 router site (grok N 8, arctic N 128) under the GEMV's
+    32-column strips and the tile's 128-column blocks: fused and packed,
+    0 ulps."""
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(n + m)
+    k = 2048
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * k**-0.5, 8, 64)
+    x = _edge_x(m, k, gen, dev, torch.bfloat16)
+    got = int8_matmul_fused(x, qt.packed, qt.scale_m, qt.scale_e, group=64)
+    want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode="int8", group=64)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    got_p = int8_matmul(xq, qt.packed, qt.scale_m, group=64)
+    want_p = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode="int8", group=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got_p.view(torch.int32), want_p.view(torch.int32))

@@ -144,3 +144,26 @@ def test_arch_or_artifact_exactly_one(capsys, argv):
     with pytest.raises(SystemExit) as exc:
         serve.main(argv)
     assert exc.value.code != 0 and "exactly one of --arch or --artifact is required" in capsys.readouterr().err
+
+
+GROK = ["--arch", "grok-1-314b", "--smoke", "--device", "cpu", "--requests", "8"]
+
+
+@pytest.fixture(scope="module")
+def grok_lockstep():
+    """The MoE smoke model's lockstep outputs by uid."""
+    run = serve.main(GROK + ["--engine", "lockstep"])
+    return {r.uid: r.output for r in run.done}
+
+
+@pytest.mark.parametrize("engine", ["staged", "lockstep"])
+def test_moe_arch_serves_through_both_engines(capsys, grok_lockstep, engine):
+    """``--arch grok-1-314b``: the router and the three expert sites in the
+    plan, every request finished, the same tokens from both engines (6-token
+    prompts over 4 experts never fill a capacity of 8: nothing drops)."""
+    run = serve.main(GROK + ["--engine", engine])
+    out = capsys.readouterr().out
+    assert re.search(r"arch=grok-1-314b-smoke weights [\d.]+ MB -> [\d.]+ MB \([\d.]+x\)  plan: 9 sites, "
+                     r"0 calibrated", out)
+    assert len(run.done) == 8 and all(r.status == "finished" and len(r.output) == 8 for r in run.done)
+    assert {r.uid: r.output for r in run.done} == grok_lockstep
