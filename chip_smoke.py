@@ -124,17 +124,21 @@ Phases, in order; any failure exits non-zero:
  10. moe      -- the MoE family at its published widths, ternary group 64,
                  kv_int8, both flash flags, random seeded weights quantized
                  on the card one site at a time: parity first -- the
-                 expert-batched packed_qmm (one launch over every expert) in
-                 all five formats at grok's gate / up (E 8, K 6144, N 32768)
-                 and down (K 32768, N 6144), C 8 (the GEMV; int8 gate: the
-                 int8 loop) and C 80 (the tile), and arctic's (E 128, K 7168
-                 / 4864) at C 8, with the capacity buffer's zero rows;
-                 quantize_rows over the (E * C, K) buffers; the int8 router
-                 at N 8 and 128, fused and packed, M 1, 4, 8, 256; all 0
-                 ulps; one grok layer's moe_layer at a decode step and a
-                 256-token chunk, kernels against their plain versions on
-                 the card, bit for bit, one quantize_rows and one packed
-                 launch a site -- then grok-1-314b at 24 of 64 layers (its
+                 expert-batched packed_qmm in all five formats at grok's
+                 gate / up (E 8, K 6144, N 32768) and down (K 32768, N
+                 6144), C 8 (the expert GEMV over all, none, one and a
+                 decode tick's routed experts) and C 80 (the tile), and
+                 arctic's (E 128, K 7168 / 4864) at C 8, with the capacity
+                 buffer's zero rows, 0 ulps and equal int32 bits;
+                 quantize_rows at the decode tick's, the prefill chunk's and
+                 the (E * C, K) buffers' shapes with edge, zero and
+                 subnormal rows; the int8 router at N 8 and 128, fused and
+                 packed, M 1, 4, 8, 256; one grok layer's moe_layer at a
+                 decode step and a 256-token chunk, kernels against their
+                 plain versions on the card, bit for bit, one quantize_rows
+                 and one packed call a site, and the decode step under
+                 torch.cuda.set_sync_debug_mode (no host synchronisation in
+                 the kernel wrappers) -- then grok-1-314b at 24 of 64 layers (its
                  packed weights, ~31 GB, and the load's peak fit the card;
                  64 layers would take ~84 GB) through the StagedEngine and
                  the lockstep engine on the launcher's traffic (8 requests,
@@ -155,9 +159,12 @@ Phases, in order; any failure exits non-zero:
                  M = 4 and 256, the K = 49152 GEMV, flash_attend kv_int8 at
                  hd 240 (decode, 256-token chunk) and flash_attention at
                  hd 240; the expert-batched packed_qmm (ternary) at grok's
-                 gate and down, C 8 and 80, and arctic's gate, C 8 (library:
-                 torch.bmm over the bf16-dequantized (E, K, N) weights), and
-                 the int8 router site at N 8, M = 4
+                 gate and down, C 8 and 80, and arctic's gate, C 8, every
+                 expert routed, and at a decode tick's routed experts
+                 (grok's gate 5 of 8, arctic's 8 of 128; library: torch.bmm
+                 over the bf16-dequantized (E, K, N) weights), quantize_rows
+                 over the four (E * C, K) buffers of a decode tick, and the
+                 int8 router site at N 8, M = 4
 
 The traced ticks and chunks log device busy time, kernels per call and the
 qdense GEMV's device time and launches per tick.
@@ -1949,29 +1956,53 @@ ROUTER_SITES = [(6144, 8), (7168, 128)]  # (d_model, E): grok, arctic
 ROUTER_ROWS = (1, 4, 8, 256)
 MOE_LONG_PROMPTS = [600, 257, 31, 6]  # grok staged: 256-token chunks and ragged tails, so the tile runs (C 80, 32, 16)
 MOE_CHUNK = 256
-# JSON row -> (what the moe phase counts: an expert packed launch (E, K, N, mode) or the fused router (K, N))
+# JSON row -> what the moe phase counts: an expert packed launch (E, K, N, mode), the fused router (K, N), or
+# quantize_rows over a decode tick's (E * C, K) capacity buffer (rows, K, dtype)
 MOE_ROWS = {
     "packed_qmm_ternary_experts_grok_gate": ("packed", 8, 6144, 32768, "m<=8"),
     "packed_qmm_ternary_experts_grok_gate_prefill": ("packed", 8, 6144, 32768, "m>8"),
     "packed_qmm_ternary_experts_grok_down": ("packed", 8, 32768, 6144, "m<=8"),
     "packed_qmm_ternary_experts_grok_down_prefill": ("packed", 8, 32768, 6144, "m>8"),
     "packed_qmm_ternary_experts_arctic_gate": ("packed", 128, 7168, 4864, "m<=8"),
+    "packed_qmm_ternary_experts_grok_gate_routed5": ("packed", 8, 6144, 32768, "m<=8"),
+    "packed_qmm_ternary_experts_arctic_gate_routed8": ("packed", 128, 7168, 4864, "m<=8"),
     "fused_qmm_int8_router": ("fused", 0, 6144, 8, "m<=8"),
+    "quantize_rows_grok_gate_c8": ("quantize", 64, 6144, "torch.bfloat16", "m>8"),
+    "quantize_rows_grok_down_c8": ("quantize", 64, 32768, "torch.float32", "m>8"),
+    "quantize_rows_arctic_gate_c8": ("quantize", 1024, 7168, "torch.bfloat16", "m>8"),
+    "quantize_rows_arctic_down_c8": ("quantize", 1024, 4864, "torch.float32", "m>8"),
+}
+# The packed rows' timing: JSON row -> (E, K, N, C, experts routed; the others' capacity rows are zero)
+MOE_TIMED = {
+    "packed_qmm_ternary_experts_grok_gate": (8, 6144, 32768, 8, 8),
+    "packed_qmm_ternary_experts_grok_gate_prefill": (8, 6144, 32768, 80, 8),
+    "packed_qmm_ternary_experts_grok_down": (8, 32768, 6144, 8, 8),
+    "packed_qmm_ternary_experts_grok_down_prefill": (8, 32768, 6144, 80, 8),
+    "packed_qmm_ternary_experts_arctic_gate": (128, 7168, 4864, 8, 128),
+    "packed_qmm_ternary_experts_grok_gate_routed5": (8, 6144, 32768, 8, 5),
+    "packed_qmm_ternary_experts_arctic_gate_routed8": (128, 7168, 4864, 8, 8),
 }
 
 
 def _moe_launches() -> _KeyedLaunches:
     """Launches of the format entries' kernels (``packed_qmm`` and
     ``fused_qmm`` as the entries call them) keyed by (kind, E, K, N, mode),
-    E 0 for one site.  Installed for the moe phase's serving runs only."""
+    E 0 for one site, and of ``quantize_rows`` as the unfused sites call it
+    keyed by ("quantize", rows, K, dtype, mode).  Installed for the moe
+    phase's serving runs only."""
     import importlib
+
+    from repro_torch.quant import backends
 
     def key(kind):
         return lambda a: (kind, a[0].shape[0] if a[0].ndim == 3 else 0, a[0].shape[-1], a[1].shape[-1],
                           "m<=8" if a[0].shape[-2] <= 8 else "m>8")
 
-    return _KeyedLaunches([(importlib.import_module(f"repro_torch.kernels.{fmt}_matmul"), name, key(name.split("_")[0]))
-                           for fmt in ("ternary", "int4", "int8", "nf4") for name in ("packed_qmm", "fused_qmm")])
+    wraps = [(importlib.import_module(f"repro_torch.kernels.{fmt}_matmul"), name, key(name.split("_")[0]))
+             for fmt in ("ternary", "int4", "int8", "nf4") for name in ("packed_qmm", "fused_qmm")]
+    wraps.append((backends, "quantize_rows", lambda a: ("quantize", a[0].shape[0], a[0].shape[1], str(a[0].dtype),
+                                                        "m<=8" if a[0].shape[0] <= 8 else "m>8")))
+    return _KeyedLaunches(wraps)
 
 
 class _PlainKernels:
@@ -2022,14 +2053,36 @@ def _expert_qsite(e, k, n, fmt, gen, dev):
     return QTensor(packed, scale_m, scale_e, f.bits, group, (k, n), fmt=fmt)
 
 
+ROUTED_SETS = ("all", "none", "one", "some")  # the expert GEMV's routed experts in the parity cases
+MOE_QUANTIZE = [  # quantize_rows parity: (rows, K, dtype, JSON row or None)
+    (M_ROWS, 4096, torch.bfloat16, None), (PREFILL_ROWS[-1], 12288, torch.bfloat16, None),
+    (64, 6144, torch.bfloat16, "quantize_rows_grok_gate_c8"), (64, 32768, torch.float32, "quantize_rows_grok_down_c8"),
+    (1024, 7168, torch.bfloat16, "quantize_rows_arctic_gate_c8"),
+    (1024, 4864, torch.float32, "quantize_rows_arctic_down_c8"),
+    (640, 6144, torch.bfloat16, None), (640, 32768, torch.float32, None),  # grok at C 80
+]
+
+
+def _routed(e: int, kind: str, seed: int) -> list:
+    """The routed experts of a parity case: all, none, the last one, or a
+    decode tick's (8 token replicas: 5 of grok's 8, 8 of arctic's 128)."""
+    if kind in ("all", "none"):
+        return list(range(e)) if kind == "all" else []
+    if kind == "one":
+        return [e - 1]
+    return sorted(torch.randperm(e, generator=torch.Generator().manual_seed(seed))[:5 if e == 8 else 8].tolist())
+
+
 def _parity_moe(dev, gen, errs) -> list:
     """The MoE path's kernels against their plain versions on the card, 0
-    ulps: the expert-batched packed_qmm (one launch over every expert) in
-    all five formats at grok's gate / up and down (C 8: the GEMV or, int8
-    gate, the int8 loop; C 80: the tile) and arctic's (E 128, C 8), with
-    the capacity buffer's zero rows; quantize_rows over the (E * C, K)
-    buffers; the int8 router site at N 8 and 128, fused and packed, M 1,
-    4, 8, 256."""
+    ulps and the same int32 bits (the signs of zero included): the
+    expert-batched packed_qmm in all five formats at grok's gate / up and
+    down (C 8: the expert GEMV over all, none, one and a decode tick's
+    routed experts, the first capacity rows of each filled; C 80: the
+    tile) and arctic's (E 128, C 8); quantize_rows at the decode tick's,
+    the prefill chunk's and the (E * C, K) capacity buffers' shapes with
+    edge rows, and zero / subnormal rows; the int8 router site at N 8 and
+    128, fused and packed, M 1, 4, 8, 256."""
     from repro_torch.kernels.fused_qmm import fused_qmm_ref
     from repro_torch.kernels.packed_qmm import packed_qmm_ref
     from repro_torch.kernels.quantize import quantize_rows, quantize_rows_plain
@@ -2040,11 +2093,12 @@ def _parity_moe(dev, gen, errs) -> list:
     def check(key, what, got, want, launched=True):
         torch.cuda.synchronize()
         ulps, err = _ulps(got, want), float((got - want).abs().max())
+        bits = torch.equal(got.view(torch.int32), want.view(torch.int32))
         if key:
             errs[key] = max(errs.get(key, 0.0), err)
-        ok = bool(torch.isfinite(got).all()) and ulps == 0 and launched
-        log(f"parity {what}: max_abs_err={err:.3e} ulps={ulps}{'' if launched else ' (not one launch)'} "
-            f"{'OK' if ok else 'FAIL'}")
+        ok = bool(torch.isfinite(got).all()) and ulps == 0 and bits and launched
+        log(f"parity {what}: max_abs_err={err:.3e} ulps={ulps} int32 bits {'equal' if bits else 'DIFFER'}"
+            f"{'' if launched else ' (not one launch)'} {'OK' if ok else 'FAIL'}")
         if not ok:
             failures.append(what)
 
@@ -2053,30 +2107,39 @@ def _parity_moe(dev, gen, errs) -> list:
             qt = _expert_qsite(e, k, n, fmt, gen, dev)
             entry = get_format(fmt).kernel
             for c in rows:
-                xq = torch.randint(-127, 128, (e, c, k), generator=gen, device=dev, dtype=torch.int8)
-                xq[:, c // 2 + 1:] = 0  # the capacity buffer's empty rows
-                before = entry.launches
-                got = entry(xq, qt.packed, qt.scale_m, group=qt.group_size)
-                one = entry.launches == before + 1
-                want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=_decode_of(fmt), group=qt.group_size)
-                key = f"packed_qmm_ternary_experts_{name}{'' if c <= 8 else '_prefill'}"
-                check(key if fmt == "ternary" and key in MOE_ROWS else None,
-                      f"packed_qmm experts {name} E={e} K={k} N={n} C={c} {fmt}", got, want, one)
-                del xq, got, want
+                for kind in ROUTED_SETS if c <= 8 else ("all",):
+                    routed = _routed(e, kind, SEED + k)
+                    xq = torch.randint(-127, 128, (e, c, k), generator=gen, device=dev, dtype=torch.int8)
+                    xq[:, c // 2 + 1:] = 0  # the capacity buffer's empty rows
+                    xq[[i for i in range(e) if i not in routed]] = 0  # the experts no replica was routed to
+                    before = entry.launches
+                    got = entry(xq, qt.packed, qt.scale_m, group=qt.group_size)
+                    one = entry.launches == before + 1
+                    want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=_decode_of(fmt), group=qt.group_size)
+                    key = f"packed_qmm_ternary_experts_{name}{'' if c <= 8 else '_prefill'}"
+                    if kind == "some":
+                        key += f"_routed{len(routed)}"
+                    check(key if fmt == "ternary" and kind in ("all", "some") and key in MOE_ROWS else None,
+                          f"packed_qmm experts {name} E={e} K={k} N={n} C={c} {fmt} routed {kind} ({len(routed)})",
+                          got, want, one)
+                    del xq, got, want
             del qt
             torch.cuda.empty_cache()
-    for e, c, k, dtype in ((8, 80, 6144, torch.bfloat16), (8, 80, 32768, torch.float32),
-                           (128, 8, 7168, torch.bfloat16)):
-        x = _rows(e * c, k, gen, dev, dtype)
-        x.view(e, c, k)[:, c // 2 + 1:] = 0
-        q, ex = quantize_rows(x)
-        wq, wex = quantize_rows_plain(x)
-        torch.cuda.synchronize()
-        ok = torch.equal(q, wq) and torch.equal(ex, wex)
-        log(f"parity quantize_rows the (E * C, K) buffer E={e} C={c} K={k} {str(dtype)[6:]}: "
-            f"{'bit-identical' if ok else 'DIFFER'} {'OK' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"quantize_rows E={e} C={c} K={k}")
+    for m, k, dtype, key in MOE_QUANTIZE:
+        for what, x in (("edge rows", _rows(m, k, gen, dev, dtype)),
+                        ("zero / subnormal rows", _zero_subnormal_rows(k, gen, dev, dtype))):
+            if m > 8 and what == "edge rows":
+                x[m // 2 + 1:] = 0  # the capacity buffer's empty rows
+            q, ex = quantize_rows(x)
+            wq, wex = quantize_rows_plain(x)
+            torch.cuda.synchronize()
+            ok = torch.equal(q, wq) and torch.equal(ex, wex)
+            if key:
+                errs[key] = max(errs.get(key, 0.0), float((q.float() - wq.float()).abs().max()))
+            log(f"parity quantize_rows ({x.shape[0]}, {k}) {str(dtype)[6:]} {what}: mantissas and exponents "
+                f"{'bit-identical OK' if ok else 'DIFFER FAIL'}")
+            if not ok:
+                failures.append(f"quantize_rows ({x.shape[0]}, {k}) {dtype} {what}")
     for k, n in ROUTER_SITES:
         qt = _qsite(k, n, "int8", gen, dev)
         for m in ROUTER_ROWS:
@@ -2093,12 +2156,56 @@ def _parity_moe(dev, gen, errs) -> list:
     return failures
 
 
+def _sync_free(fn, label) -> list:
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode``: "warn" lists
+    every operation that synchronises with the host by the innermost frames
+    of the Python stack that reached it (this repository's, and torch's
+    where the sync is in a torch function), then, where there is none,
+    "error" runs it again.  A sync reached from a kernel wrapper
+    (``repro_torch/kernels``) or the qmatmul backends fails the phase."""
+    import traceback
+    import warnings
+
+    stacks = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):  # not the mode's own notice that it is a prototype
+            stacks.append([f"{os.path.relpath(f.filename, HERE) if f.filename.startswith(HERE) else f.filename}:"
+                           f"{f.lineno} {f.name}" for f in traceback.extract_stack()[:-1]])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if not stacks:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = []
+    for st in stacks:  # the repository's innermost frame, and anything below it
+        inner = max((i for i, f in enumerate(st) if f.startswith("src/") or f.startswith("chip_smoke")), default=0)
+        where.append(" <- ".join(reversed(st[inner:])))
+    wrappers = ("src/repro_torch/kernels", "src/repro_torch/quant/backends")
+    ours = [w for w in where if any(f.startswith(wrappers) for f in w.split(" <- "))]
+    log(f"{label} under torch.cuda.set_sync_debug_mode: {len(stacks)} host synchronisation(s) "
+        f"{sorted(set(where)) if where else '(none; then mode error ran it through)'}; reached from the kernel "
+        f"wrappers {len(ours)} {'OK' if not ours else 'FAIL'}")
+    return [f"{label}: host syncs in the kernel wrappers {ours}"] if ours else []
+
+
 def _moe_layer_parity(dev) -> list:
     """One grok-1 layer's ``moe_layer`` at full width (ternary group 64,
     the int8 router): a decode step (4 slots: C 8) and a 256-token chunk
     (C 80), the kernels against their plain versions on the card on the
     same weights and input, bit for bit, and one packed launch and one
-    quantize_rows a site."""
+    quantize_rows a site; the decode step again under the sync debug mode
+    (``_sync_free``)."""
     from repro_torch.kernels.quantize import quantize_rows
     from repro_torch.kernels.ternary_matmul import ternary_matmul
     from repro_torch.models import moe
@@ -2129,6 +2236,10 @@ def _moe_layer_parity(dev) -> list:
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"moe_layer {label}")
+        if label == "decode step":
+            with torch.inference_mode():
+                failures += _sync_free(lambda: moe.moe_layer(p, h, "blocks/moe", cfg, ctx),
+                                       f"moe_layer {GROK} decode step")
     del p
     _free()
     return failures
@@ -2221,8 +2332,10 @@ class _Timer:
     """CUDA-event time of one call, device memory flushed before each run
     (the decode tick streams 2.3 GB of weights, far more than the 50 MB L2,
     so every site finds its weights cold).  A device-side sleep after the
-    flush keeps the card busy while the host enqueues the call, so the
-    events time the device work, not the wrapper's host overhead."""
+    flush (~5 ms: a host that stalls for a few ms while it enqueues the
+    call must not show in a device time) keeps the card busy while the
+    host enqueues the call, so the events time the device work, not the
+    wrapper's host overhead."""
 
     def __init__(self, dev):
         self.flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -2233,7 +2346,7 @@ class _Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
-            torch.cuda._sleep(2_000_000)  # ~1 ms of device time
+            torch.cuda._sleep(10_000_000)  # ~5 ms of device time
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
@@ -2262,7 +2375,10 @@ QDENSE_TIMED = {
     "packed_qmm_nf4": ("nf4", "packed", M_ROWS, LAYER_SITES),
     "packed_qmm_int8": ("int8", "packed", M_ROWS, LM_HEAD),
 }
-QUANTIZE_TIMED = {"quantize_rows": (M_ROWS, 4096), "quantize_rows_prefill": (PREFILL_ROWS[-1], 12288)}
+QUANTIZE_TIMED = {  # JSON row -> (rows, D, dtype): the decode tick, the prefill chunk, the capacity buffers at C 8
+    "quantize_rows": (M_ROWS, 4096, torch.bfloat16), "quantize_rows_prefill": (PREFILL_ROWS[-1], 12288, torch.bfloat16),
+    **{row: (key[1], key[2], getattr(torch, key[3][6:])) for row, key in MOE_ROWS.items() if key[0] == "quantize"},
+}
 
 
 def _bound(nbytes: float, ops: float, peak_ops: float) -> dict:
@@ -2331,14 +2447,16 @@ def phase_timings(dev) -> dict:
             f"{row['library_ms']:.4f} ms")
     _time_split(timer, gen, dev)
     _time_gemv_choices(timer, gen, dev)
-    for name, (m, d) in QUANTIZE_TIMED.items():
-        x = (torch.randn((m, d), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
-        nbytes = x.numel() * 2 + m * d + m * 4  # x in, int8 mantissas and int32 exponents out
+    for name, (m, d, dtype) in QUANTIZE_TIMED.items():
+        x = (torch.randn((m, d), generator=gen, device=dev) * 0.1).to(dtype)
+        nbytes = x.numel() * x.element_size() + m * d + m * 4  # x in, int8 mantissas and int32 exponents out
         rows[name] = dict(ms=timer(lambda: quantize_rows(x)), plain_ms=timer(lambda: quantize_rows_plain(x), iters=3,
                                                                              warmup=1),
                           library_ms=None, **_bound(nbytes, 0, INT8_OPS_PER_S))
-        log(f"time quantize_rows ({m}, {d}) bf16: kernel {rows[name]['ms']:.4f} ms, bound {rows[name]['bound_ms']:.5f} ms "
-            f"({nbytes / 1e6:.2f} MB; by bytes), plain {rows[name]['plain_ms']:.4f} ms, library -- (no single call)")
+        log(f"time {name} ({m}, {d}) {str(dtype)[6:]}: kernel {rows[name]['ms']:.4f} ms, bound "
+            f"{rows[name]['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB; by bytes), "
+            f"plain {rows[name]['plain_ms']:.4f} ms, "
+            f"library -- (no single call)")
 
     # flash kv_bf16 at the lockstep decode shape (4 slots x 256 positions)
     fs = FLASH_SHAPE
@@ -2387,32 +2505,35 @@ def _time_families(timer, gen, dev, rows) -> None:
 
 def _time_moe(timer, gen, dev, rows) -> None:
     """The expert-batched packed_qmm at grok's gate and down (C 8 and 80)
-    and arctic's gate (C 8), ternary: kernel, plain version (the loop over
-    experts) and ``torch.bmm`` over the bf16-dequantized (E, K, N)
-    weights; the bound from x's int8 rows, every expert's packed weights
-    and scales and the f32 out, and 2 E C K N int8 operations.  The int8
-    router site (grok, N 8) at M = 4 as a qdense site."""
+    and arctic's gate (C 8), ternary, every expert routed, and at a decode
+    tick's routed experts (grok's gate 5 of 8, arctic's 8 of 128; the
+    others' capacity rows zero): kernel, plain version (the loop over
+    experts) and ``torch.bmm`` over the bf16-dequantized (E, K, N) weights
+    and the same x; the bound from all of x's int8 rows and the f32 out,
+    the routed experts' packed weights and scales (what these inputs need)
+    and 2 R C K N int8 operations.  The int8 router site (grok, N 8) at M =
+    4 as a qdense site."""
     from repro_torch.kernels.packed_qmm import packed_qmm_ref
     from repro_torch.kernels.quantize import quantize_rows
     from repro_torch.quant.formats import dequantize_weights, get_format
 
     entry = get_format("ternary").kernel
-    for name, (kind, e, k, n, mode) in MOE_ROWS.items():
-        if kind != "packed":
-            continue
-        c = 80 if mode == "m>8" else 8
+    for name, (e, k, n, c, routed) in MOE_TIMED.items():
         qt = _expert_qsite(e, k, n, "ternary", gen, dev)
         x = (torch.randn((e, c, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        if routed < e:  # a decode tick's routed experts: the others' capacity rows are zero
+            keep = _routed(e, "some", SEED + k)
+            x[[i for i in range(e) if i not in keep]] = 0
         xq = quantize_rows(x.view(e * c, k))[0].view(e, c, k)
         w_bf16 = torch.stack([dequantize_weights(qt.expert(i)).to(torch.bfloat16) for i in range(e)])
-        nbytes = xq.numel() + qt.nbytes() + e * c * n * 4
+        nbytes = xq.numel() + qt.nbytes() * routed // e + e * c * n * 4
         rows[name] = r = dict(
             ms=timer(lambda: entry(xq, qt.packed, qt.scale_m, group=qt.group_size)),
             plain_ms=timer(lambda: packed_qmm_ref(xq, qt.packed, qt.scale_m, decode="ternary", group=qt.group_size),
                            iters=3, warmup=1),
-            library_ms=timer(lambda: torch.bmm(x, w_bf16)), **_bound(nbytes, 2 * e * c * k * n, INT8_OPS_PER_S))
-        log(f"time {name} (E={e} K={k} N={n} C={c} ternary, one launch): kernel {r['ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms (by {r['bound_by']}; {nbytes / 1e9:.3f} GB), plain {r['plain_ms']:.4f} ms, "
+            library_ms=timer(lambda: torch.bmm(x, w_bf16)), **_bound(nbytes, 2 * routed * c * k * n, INT8_OPS_PER_S))
+        log(f"time {name} (E={e} K={k} N={n} C={c} ternary, {routed} routed, one call): kernel {r['ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms (by {r['bound_by']}; {nbytes / 1e9:.3f} GB), plain {r['plain_ms']:.4f} ms, "
             f"torch.bmm bf16 {r['library_ms']:.4f} ms")
         del qt, x, xq, w_bf16
         torch.cuda.empty_cache()
@@ -2621,8 +2742,11 @@ def main() -> None:
         f"lm_head at M={M_ROWS}; launches are summed over the kernels API call of the parity phase and the lockstep, "
         f"staged, format, serve, artifact and families runs; the families' rows (*_ragged*, *_k49152, *_hd240) are "
         f"single sites or calls, their launches those of their K or head_dim in the families runs (flash_attention: "
-        f"its hd 240 parity calls); the moe rows (*_experts_*, fused_qmm_int8_router) are one launch over every "
-        f"expert of a site or the router site, their launches those of their shape in the moe phase's serving runs")
+        f"its hd 240 parity calls); the moe rows (*_experts_*, fused_qmm_int8_router, quantize_rows_*_c8) are one call "
+        f"over every expert of a site (the *_routed* rows: a decode tick's routed experts, the bound from their "
+        f"weights), "
+        f"the router site or a decode tick's capacity buffer, their launches those of their shape in the moe phase's "
+        f"serving runs")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

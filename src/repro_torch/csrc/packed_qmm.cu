@@ -15,31 +15,46 @@
 // fused kernel's bit for bit, and the caller's exponent, bias and
 // activation reproduce the fused site.
 //
-// MoE expert sites: `experts` = E stacks E sites of one shape -- x_q
-// (E, M, K), weights (E, ...), scale mantissas (E, K / G, N), out (E, M, N)
-// -- into one launch of the same kernel, the expert a grid axis (the
-// reference's jax.vmap over its pallas_call); 1 for one site.
+// MoE expert sites: E sites of one shape stacked -- x_q (E, M, K), weights
+// (E, ...), scale mantissas (E, K / G, N), out (E, M, N).  M > 8: the tile,
+// the expert a grid axis (the reference's jax.vmap over its pallas_call).
+// M <= 8 (packed_qmm_experts_launch): qmm_gemv_experts.cuh, a scan of x's
+// rows and one persistent GEMV over the routed experts only, the skipped
+// experts' out written as +0 -- each expert's sums bit for bit its own
+// launch's, every decode.
 #include "qmm_gemv.cuh"
 #include "qmm_gemv8.cuh"
+#include "qmm_gemv_experts.cuh"
 #include "qmm_mma.cuh"
 
 // M <= 8: the GEMV over the wrapper's plan (see fused_qmm.cu).
 extern "C" int packed_qmm_launch(int decode, const void* xq, const void* w, const void* scale_m, void* out, int M,
                                  int K, int N, int group, int bk, int tps, int splits, int wn,
                                  int cpp, int items, int grid_x, int tpc, int pull, unsigned lut0, unsigned lut1,
-                                 unsigned lut2, unsigned lut3, size_t smem, int experts, void* stream) {
+                                 unsigned lut2, unsigned lut3, size_t smem, void* stream) {
   const qmm::gemv::Args a{xq, w, static_cast<const int8_t*>(scale_m), nullptr, nullptr, static_cast<float*>(out),
                           M, K, N, group, bk, 0, 8, 0, 0, tps, splits, wn, cpp, items, tpc, pull,
                           make_uint4(lut0, lut1, lut2, lut3)};
-  return static_cast<int>(
-      qmm::gemv::launch_any<int8_t>(decode, a, grid_x, smem, static_cast<cudaStream_t>(stream), experts));
+  return static_cast<int>(qmm::gemv::launch_any<int8_t>(decode, a, grid_x, smem, static_cast<cudaStream_t>(stream)));
 }
 
 // M <= 8, the int8 decode (see fused_qmm.cu).
 extern "C" int packed_qmm_int8_launch(const void* xq, const void* w, const void* scale_m, void* out, int M, int K,
-                                      int N, int group, int bk, int rpb, int experts, void* stream) {
+                                      int N, int group, int bk, int rpb, void* stream) {
   return static_cast<int>(qmm::gemv8::launch<int8_t>(xq, w, scale_m, nullptr, nullptr, out, M, K, N, group, bk, rpb,
-                                                     0, 8, 0, 0, static_cast<cudaStream_t>(stream), experts));
+                                                     0, 8, 0, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// M <= 8 over E experts (flags: E x P ints of scratch; grid: the wrapper's
+// persistent blocks; smem: its shared-memory plan).
+extern "C" int packed_qmm_experts_launch(int decode, const void* xq, const void* w, const void* scale_m, void* flags,
+                                         void* out, int E, int P, int M, int K, int N, int group, int bk,
+                                         unsigned lut0, unsigned lut1, unsigned lut2, unsigned lut3, int grid,
+                                         size_t smem, void* stream) {
+  const qmm::gemv::ExpertArgs a{static_cast<const int8_t*>(xq), w, static_cast<const int8_t*>(scale_m),
+                                static_cast<const int*>(flags), static_cast<float*>(out), E, P, M, K, N, group, bk,
+                                make_uint4(lut0, lut1, lut2, lut3)};
+  return static_cast<int>(qmm::gemv::launch_experts(decode, a, grid, smem, static_cast<cudaStream_t>(stream)));
 }
 
 // M > 8: the tensor-core tile over `splits` k-splits of `tps` k-tiles each

@@ -15,9 +15,7 @@
 // tile's sum (shared memory), the tile sums in tile order.  K is any
 // multiple of the cluster: the last k-tile may be ragged (gemma3's lm_head,
 // K = 3840 = 7 x 512 + 256) and holds the units that are left.  An MoE
-// expert site (packed_qmm over E experts, one launch) puts the expert on
-// the grid's z: each expert's blocks start at its x (E, M, K), weights
-// (E, K, N), scale mantissas (E, K / G, N) and out (E, M, N).
+// expert site at decode runs qmm_gemv_experts.cuh instead, every decode.
 #pragma once
 
 #include <type_traits>
@@ -131,20 +129,13 @@ __device__ __forceinline__ void tile_sums(const Smem& s, const int8_t* __restric
 }
 
 // T: float / bf16 x (the fused site) or int8_t (packed: x already quantized).
-// Grid (ceil(N / kBn), ceil(M / rpb), experts).  kExperts: an expert-stacked
-// launch (packed only), an instance of its own, so one site's kernel is the
-// one it was before the expert axis (with the offsets in every instance,
-// lm_head's loop read 6-8% slower on the H100; PERF.md).
-template <typename T, bool kExperts>
+// Grid (ceil(N / kBn), ceil(M / rpb)).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gemv8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w, const int8_t* __restrict__ scale_m,
              const int* __restrict__ scale_e, const float* __restrict__ bias, float* __restrict__ out, int M, int K,
              int N, int group, int bk, int rpb, int act, int act_bits, int has_static, int static_e) {
   constexpr bool kFused = !std::is_same<T, int8_t>::value;
-  if constexpr (kExperts) {
-    const size_t ex = blockIdx.z;
-    x += ex * M * K, w += ex * K * N, scale_m += ex * (K / group) * N, out += ex * M * N;
-  }
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red_m[kWarps][kRows];
   __shared__ int red_nan[kWarps][kRows];
@@ -252,35 +243,20 @@ gemv8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w, const int8_t
   }
 }
 
-template <typename T, bool kExperts>
-cudaError_t launch_kernel(const void* x, const void* w, const void* scale_m, const void* scale_e, const void* bias,
-                          void* out, int M, int K, int N, int group, int bk, int rpb, int act, int act_bits,
-                          int has_static, int static_e, cudaStream_t stream, int experts) {
-  auto kernel = gemv8_kernel<T, kExperts>;
+template <typename T>
+cudaError_t launch(const void* x, const void* w, const void* scale_m, const void* scale_e, const void* bias,
+                   void* out, int M, int K, int N, int group, int bk, int rpb, int act, int act_bits, int has_static,
+                   int static_e, cudaStream_t stream) {
+  auto kernel = gemv8_kernel<T>;
   static bool configured = false;
   const cudaError_t err = raise_smem_cap(kernel, configured);
   if (err != cudaSuccess) return err;
   const int rows = M < rpb ? M : rpb;
-  kernel<<<dim3((N + kBn - 1) / kBn, (M + rpb - 1) / rpb, experts), kThreads, smem_bytes(rows, K, group, bk),
-           stream>>>(
+  kernel<<<dim3((N + kBn - 1) / kBn, (M + rpb - 1) / rpb), kThreads, smem_bytes(rows, K, group, bk), stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(w), static_cast<const int8_t*>(scale_m),
       static_cast<const int*>(scale_e), static_cast<const float*>(bias), static_cast<float*>(out), M, K, N, group,
       bk, rpb, act, act_bits, has_static, static_e);
   return cudaGetLastError();
-}
-
-// experts: E of an expert-stacked launch (packed only), 1 for one site.
-template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* scale_m, const void* scale_e, const void* bias,
-                   void* out, int M, int K, int N, int group, int bk, int rpb, int act, int act_bits, int has_static,
-                   int static_e, cudaStream_t stream, int experts = 1) {
-  if constexpr (std::is_same<T, int8_t>::value) {
-    if (experts > 1)
-      return launch_kernel<T, true>(x, w, scale_m, scale_e, bias, out, M, K, N, group, bk, rpb, act, act_bits,
-                                    has_static, static_e, stream, experts);
-  }
-  return launch_kernel<T, false>(x, w, scale_m, scale_e, bias, out, M, K, N, group, bk, rpb, act, act_bits,
-                                 has_static, static_e, stream, 1);
 }
 
 }  // namespace

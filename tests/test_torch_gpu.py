@@ -714,7 +714,7 @@ def test_flash_attention_hd_240_matches_plain(dev, dtype, atol):
 # MoE: the expert-batched packed_qmm (one launch over every expert) and the
 # router site's few columns.
 # ---------------------------------------------------------------------------
-EXPERT_ROUTES = [  # (format, E, K, N, C): the GEMV, the int8 loop (N / 128 >= 132), the tile
+EXPERT_ROUTES = [  # (format, E, K, N, C): the expert GEMV at C <= 8 (every decode, N 16896 too), the tile
     ("ternary", 4, 1024, 384, 8), ("int4", 8, 512, 256, 3), ("nf4", 4, 1024, 192, 8), ("mx", 4, 768, 256, 5),
     ("int8", 2, 256, 16896, 8), ("int8", 4, 512, 256, 8),
     ("ternary", 4, 1024, 384, 80), ("int4", 3, 512, 1040, 17), ("nf4", 8, 512, 256, 132), ("mx", 4, 768, 256, 24),
@@ -788,3 +788,95 @@ def test_router_site_few_columns_bit_exact(dev, n, m):
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(got_p.view(torch.int32), want_p.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The expert-batched GEMV over the routed experts only (csrc/qmm_gemv_experts.cuh)
+# and quantize_rows reading each row once, at the MoE capacity buffers.
+# ---------------------------------------------------------------------------
+EXPERT_DECODES = [("ternary", 64), ("ternary", 16), ("ternary", 32), ("int4", 64), ("int4", 16), ("nf4", 64),
+                  ("nf4", 16), ("int8", 64), ("int8", 16), ("mx", 32)]
+ROUTED = {  # routed experts of E, and the rows each routed expert fills (of C)
+    "none": lambda e: [], "one": lambda e: [e - 1], "some": lambda e: list(range(1, e, 3)),
+    "all": lambda e: list(range(e)),
+}
+
+
+def _routed_x(e, c, k, routed, gen, dev, partial=True):
+    """A capacity buffer: random int8 rows for the routed experts (the
+    first of them partly filled, as a tick's replicas leave them), zero
+    rows elsewhere."""
+    xq = torch.zeros((e, c, k), dtype=torch.int8, device=dev)
+    for i, ex in enumerate(routed):
+        rows = max(1, c // 2) if partial and i == 0 else c
+        xq[ex, :rows] = torch.randint(-127, 128, (rows, k), generator=gen, device=dev, dtype=torch.int8)
+    return xq
+
+
+@pytest.mark.parametrize("fmt,group", EXPERT_DECODES)
+@pytest.mark.parametrize("routed", list(ROUTED))
+def test_expert_gemv_routed_subsets_bit_exact(dev, fmt, group, routed):
+    """Routed sets of 0, 1, some and all of E experts, the first routed
+    one's rows partly filled, C 3 and 8, K with a ragged last k-tile: the
+    int32 bits equal the plain per-expert loop's, the skipped experts' out
+    +0 (bits 0), one launch on the format's entry."""
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.quant.formats import get_format
+
+    gen = torch.Generator(device=dev).manual_seed(group + len(routed))
+    e, k, n = 6, 1280, 200
+    g = 32 if fmt == "mx" else group
+    qt = quantize_weights(torch.randn((e, k, n), generator=gen, device=dev) * k**-0.5, FMT_BITS[fmt], g, fmt=fmt)
+    entry, decode = get_format(fmt).kernel, "int8" if fmt == "mx" else fmt
+    for c in (3, 8):
+        experts = ROUTED[routed](e)
+        xq = _routed_x(e, c, k, experts, gen, dev)
+        before = entry.launches
+        got = entry(xq, qt.packed, qt.scale_m, group=qt.group_size)
+        want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size)
+        torch.cuda.synchronize()
+        assert entry.launches == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        skipped = [i for i in range(e) if i not in experts]
+        assert not got[skipped].view(torch.int32).any()
+
+
+@pytest.mark.parametrize("e,k,n,routed", [(8, 6144, 32768, 5), (8, 32768, 6144, 8), (128, 7168, 4864, 8)])
+def test_expert_gemv_full_width_routed_bit_exact(dev, e, k, n, routed):
+    """grok-1's gate and down and arctic's gate at their widths, C 8, with
+    a decode tick's routed experts: bit for bit the plain loop."""
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(e + routed)
+    packed = torch.randint(-2**31, 2**31 - 1, (e, k // 16, n), generator=gen, device=dev, dtype=torch.int32)
+    scale_m = torch.randint(-127, 128, (e, k // 64, n), generator=gen, device=dev, dtype=torch.int8)
+    experts = sorted(torch.randperm(e, generator=torch.Generator().manual_seed(e))[:routed].tolist())
+    xq = _routed_x(e, 8, k, experts, gen, dev)
+    got = ternary_matmul(xq, packed, scale_m, group=64)
+    want = packed_qmm_ref(xq, packed, scale_m, decode="ternary", group=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d", [(4, 4096), (256, 12288), (64, 6144), (64, 32768), (1024, 7168), (1024, 4864),
+                                 (8, 49152), (3, 131072), (5, 64)])
+def test_quantize_rows_one_read_bit_exact(dev, dtype, m, d):
+    """The redesigned quantize_rows at the decode tick's, the prefill
+    chunk's and the four capacity buffers' shapes, a row split over a
+    cluster (64 x 32768 f32, 8 x 49152), the two-pass long rows (131072
+    f32) and a short row; NaN, +-inf, zero and subnormal-max rows: the
+    plain version's bytes and exponents."""
+    from repro_torch.kernels.quantize import quantize_rows, quantize_rows_plain
+
+    gen = torch.Generator(device=dev).manual_seed(m + d)
+    x = _edge_x(m, d, gen, dev, torch.float32)
+    if m > 6:
+        x[5, 3], x[6, 2] = float("inf"), float("-inf")
+        x[m // 2:] = 0.0  # the capacity buffer's empty rows
+    x = x.to(dtype)
+    q, e = quantize_rows(x)
+    wq, we = quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, wq) and torch.equal(e, we)

@@ -99,3 +99,25 @@ def test_expert_qmatmul_matches_reference_vmap(fmt, static):
         got = qmatmul(torch.from_numpy(x), qt, backend=backend, act_exponent=static)
         assert got.shape == (4, 8, 64)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)  # cluster sums in other float orders
+
+
+@pytest.mark.parametrize("fmt", list(FORMATS))
+@pytest.mark.parametrize("block_k", [512, 64])
+def test_plain_packed_qmm_of_zero_rows_is_plus_zero(fmt, block_k):
+    """An expert whose capacity rows are all zero gets +0 from the plain
+    version (int32 bits 0, negative scale mantissas included: 0 x sm may
+    be -0, but every tile sum starts at +0 and +0 + -0 = +0), in every
+    decode: the expert GEMV on the card skips such an expert and writes +0,
+    bit for bit."""
+    _, qt = _expert_site(fmt)
+    decode = {"ternary": "ternary", "int4": "int4", "int8": "int8", "nf4": "nf4", "mx": "int8"}[fmt]
+    scale_m = qt.scale_m.clone()
+    scale_m[..., ::2] = -scale_m[..., ::2]  # the kernels take any int8 scale mantissa
+    xq = torch.from_numpy(np.random.default_rng(5).integers(-127, 128, size=(4, 8, 128)).astype(np.int8))
+    xq[1] = 0
+    xq[3] = 0
+    xq[0, 3:] = 0  # a routed expert's empty capacity rows
+    got = packed_qmm(xq, qt.packed, scale_m, decode=decode, group=qt.group_size, block_k=block_k)
+    assert not got[[1, 3]].view(torch.int32).any()
+    assert not got[0, 3:].view(torch.int32).any()
+    assert got[[0, 2]].abs().sum() > 0

@@ -28,9 +28,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_qmm import (
-    GEMV_MAX_SPLITS, GEMV_SMEM, GEMV_STRIP, GEMV_WARPS, TILE_GROUPS, check_weights, cluster_sums, fused_qmm_ref, gemv_plan,
-    gemv_smem_bytes, gemv_step, lut_words, quantize_prologue, rows_per_block, uses_int8_loop, uses_tile,
+    GEMV_BLOCKS_PER_SM, GEMV_MAX_SPLITS, GEMV_SMEM, GEMV_STRIP, GEMV_WARPS, TILE_GROUPS, check_weights, cluster_sums,
+    fused_qmm_ref, gemv_plan, gemv_smem_bytes, gemv_step, lut_words, quantize_prologue, rows_per_block,
+    uses_int8_loop, uses_tile,
 )
+from repro_torch.kernels.packed_qmm import expert_plan, expert_x_bytes, packed_qmm_ref
 from repro_torch.quant.formats import quantize_weights
 from test_torch_qmm_tile import (
     FMT_BITS, a_from_frags, as_words, b_from_frags, byte_perm, c_coords, lut4, magic_product, transpose4,
@@ -498,3 +500,132 @@ def test_gemv_takes_m_up_to_8_and_its_groups(m):
     with pytest.raises(ValueError, match="GEMV"):  # group 8: no mma k takes it
         gemv_plan(m, 256, 16, "int4", 8)
     assert gemv_plan(m, 256, 16, "int4", 16)["blocks"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# The expert-batched GEMV of an MoE site at decode (csrc/qmm_gemv_experts.cuh):
+# its B registers from raw x bytes, its walk over the routed experts, its
+# plan, its float order.
+# ---------------------------------------------------------------------------
+def x_raw_lanes(xq, m, kl, decode, group):
+    """The expert kernel's B registers of the step at kl: lane (g, t) copies
+    its raw bytes of row g (XLane: 4 regs bytes at 4 regs t, or for ternary
+    and int4 at 16-k steps the 8 bytes at 8 (t >> 1); rows >= M zero) and
+    permutes them into perm8 order (x_regs: one __byte_perm a register)."""
+    regs = gemv_step(decode, group)[0] // 16
+    xb = expert_x_bytes(decode, group)
+    off = xb * T_OF if xb == 4 * regs else 8 * (T_OF >> 1)
+    rows = torch.clamp(G_OF, max=m - 1)
+    b = xq[rows[:, None], kl + off[:, None] + torch.arange(xb)[None]].to(torch.int64) & 0xFF
+    b = torch.where((G_OF < m)[:, None], b, 0).reshape(32, xb // 4, 4)
+    raw = sum(b[..., i] << (8 * i) for i in range(4))  # (32, xb / 4) words
+    if not uses_perm(decode):
+        return raw
+    if regs == 1:
+        return byte_perm(raw[:, 0], raw[:, 1], torch.where(T_OF & 1 == 1, 0x7531, 0x6420))[:, None]
+    out = torch.empty_like(raw)
+    for j in range(0, regs, 2):
+        lo, hi = raw[:, j], raw[:, j + 1]
+        out[:, j], out[:, j + 1] = byte_perm(lo, hi, 0x6420), byte_perm(lo, hi, 0x7531)
+    return out
+
+
+@pytest.mark.parametrize("decode,group", VARIANTS)
+def test_expert_b_registers_from_raw_x_bytes(decode, group):
+    """The raw bytes a lane copies and permutes in registers are the B
+    registers the one-site GEMV reads from its perm8 rows in shared
+    memory, at every step of a K with a ragged tile, M 3 and 8."""
+    sk = gemv_step(decode, group)[0]
+    for m in (3, 8):
+        xq = _xq(m, 640, m + group)
+        img = x_image(xq, decode)
+        for kl in range(0, 640, sk):
+            assert torch.equal(x_raw_lanes(xq, m, kl, decode, group), x_lanes(img, m, kl, sk // 16)), (m, kl)
+
+
+def expert_units(routed, n, grid, warps=GEMV_WARPS):
+    """Each warp's units of the walk, as the kernel assigns them: the
+    routed experts (ascending) x ceil(N / 32) strips, unit u = (routed[u //
+    strips], u % strips), warp w of W = grid x warps taking [w U / W, (w + 1)
+    U / W).  Returns [(expert, strip), ...] a warp, warp-major."""
+    strips = -(-n // GEMV_STRIP)
+    units, total = len(routed) * strips, grid * warps
+    return [[(routed[u // strips], u % strips) for u in range(w * units // total, (w + 1) * units // total)]
+            for w in range(total)]
+
+
+EXPERT_SITES = [(8, 6144, 32768), (8, 32768, 6144), (128, 7168, 4864), (128, 4864, 7168)]  # grok, arctic
+
+
+def _routed_sets(e):
+    return {"none": [], "one": [e - 1], "tick": sorted(np.random.default_rng(e).permutation(e)[:5 if e == 8 else 8]),
+            "all": list(range(e))}
+
+
+@pytest.mark.parametrize("e,k,n", EXPERT_SITES)
+def test_expert_walk_covers_routed_units_and_skipped_blocks_once(e, k, n):
+    """grok's and arctic's sites with 0, 1, a decode tick's and all experts
+    routed: the warps' units are every routed expert's strips once and no
+    skipped expert's, adjacent in a warp and balanced to one unit; the
+    grid-strided +0 stores cover every skipped expert's (C, N) out block
+    once, in 16-byte stores."""
+    plan = expert_plan(e, 8, k, "ternary", 64, SMS)
+    strips = -(-n // GEMV_STRIP)
+    for name, routed in _routed_sets(e).items():
+        walk = expert_units(routed, n, plan["grid"])
+        units = [u for w in walk for u in w]
+        assert sorted(units) == sorted((r, s) for r in routed for s in range(strips)), name
+        sizes = [len(w) for w in walk]
+        assert max(sizes) - min(sizes) <= 1
+        for w in walk:  # a warp's units are consecutive strips (of one expert, or the next one's first)
+            flat = [routed.index(r) * strips + s for r, s in w]
+            assert flat == list(range(flat[0], flat[0] + len(flat))) if flat else True
+        skipped = [i for i in range(e) if i not in routed]
+        per4 = 8 * n // 4
+        idx = np.arange(len(skipped) * per4)  # the zero loop's i, over grid x 256 threads strided
+        blocks = np.asarray(skipped, dtype=np.int64)[idx // per4] * per4 + idx % per4
+        assert len(np.unique(blocks)) == len(skipped) * per4
+        assert set(np.asarray(skipped)[idx // per4].tolist()) == set(skipped)
+
+
+@pytest.mark.parametrize("decode,group", VARIANTS + [("int8", 32)])
+def test_expert_plan_fills_the_card_whatever_e_and_fits(decode, group):
+    """The expert plan: GEMV_BLOCKS_PER_SM blocks an SM for E 8 and 128
+    (the whole card, never sms / E), each warp's ring (weights, x and
+    scale words) within GEMV_SMEM at that residency, and a scan of about
+    two blocks an SM.  A unit walks the whole K of its strip once: each x
+    byte of its expert's rows is copied once, in k order -- grok's down
+    projection (K 32768) included, where the one-site plan stages x a
+    k-tile at a time."""
+    for e, k, n in EXPERT_SITES:
+        plan = expert_plan(e, 8, k, decode, group, SMS)
+        assert plan["grid"] == SMS * GEMV_BLOCKS_PER_SM
+        assert plan["smem"] <= GEMV_SMEM
+        assert 1 <= plan["slices"] <= 32 and e * plan["slices"] <= 4 * SMS
+    sk = gemv_step(decode, group)[0]
+    k = 32768
+    copied = np.concatenate([np.arange(kl, kl + sk) for cl in range(k // group) for st in range(group // sk)
+                             for kl in [cl * group + st * sk]])
+    assert np.array_equal(copied, np.arange(k))
+
+
+@pytest.mark.parametrize("decode", DECODES)
+def test_expert_gemv_order_matches_plain_with_skipped_experts(decode):
+    """Each routed expert's strips walked as the expert kernel walks them
+    (the whole K, clusters in order into each k-tile's sum from 0, the
+    tiles in order into the run from 0; a ragged last tile) and +0 for the
+    skipped experts: the plain expert loop's bits."""
+    e, m, k, n, group = 3, 8, 1280, 40, 32
+    qt = quantize_weights(torch.from_numpy(np.random.default_rng(3).normal(size=(e, k, n)).astype(np.float32)),
+                          FMT_BITS[decode], group, fmt=decode)
+    xq = torch.stack([_xq(m, k, i) for i in range(e)])
+    xq[1] = 0  # skipped
+    xq[2, 5:] = 0  # a routed expert's empty capacity rows
+    nk, cpt = -(-k // 512), 512 // group
+    got = torch.zeros(e, m, n)
+    for ex in (0, 2):
+        got[ex] = emulate_gemv(xq[ex], qt.packed[ex], qt.scale_m[ex], decode=decode, group=group,
+                               plan=dict(cpp=cpt, tps=nk, splits=1))
+    want = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=group)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not want[1].view(torch.int32).any()
