@@ -113,7 +113,8 @@ Phases, in order; any failure exits non-zero:
                  prompt token each took 417 s at 48 layers) beside the
                  staged engine on that model; its 6-layer float32 twin
                  (5 local + 1 global) at T 2048, flash against the oracle
-                 within 5e-3; qwen1.5-110b, all 80 layers, seeded non-zero
+                 within 5e-3; qwen1.5-110b, 40 of 80 layers (cut for
+                 time: the script's limit), seeded non-zero
                  q / k / v biases, through the StagedEngine on the
                  launcher's 8 requests (6-token prompts: the GEMV only),
                  with GEMV launches at K = 49152; and
@@ -138,9 +139,10 @@ Phases, in order; any failure exits non-zero:
                  plain versions on the card, bit for bit, one quantize_rows
                  and one packed call a site, and the decode step under
                  torch.cuda.set_sync_debug_mode (no host synchronisation in
-                 the kernel wrappers) -- then grok-1-314b at 24 of 64 layers (its
-                 packed weights, ~31 GB, and the load's peak fit the card;
-                 64 layers would take ~84 GB) through the StagedEngine and
+                 the kernel wrappers) -- then grok-1-314b at 16 of 64 layers
+                 (~21 GB packed; 64 layers would take ~84 GB, and 24 -- the
+                 depth until this phase's time went to the vlm_ssm phase --
+                 fit too) through the StagedEngine and
                  the lockstep engine on the launcher's traffic (8 requests,
                  6-token prompts, 8 new tokens; staged vs lockstep token
                  differences logged, not gated) and staged on prompts of
@@ -149,7 +151,37 @@ Phases, in order; any failure exits non-zero:
                  traffic, with 3 packed launches a layer a forward over its
                  128 experts.  Load s, packed and peak GB, tokens/s and
                  launches are logged
- 11. timings  -- kernel, plain version, library call (a yardstick the port
+ 11. vlm_ssm  -- the VLM, SSM and hybrid families at their published widths,
+                 ternary group 64, kv_int8, random seeded weights quantized on
+                 the card one site at a time: parity first -- qdense at
+                 qwen2-vl's down (K = 29568 = 57 x 512 + 384: a ragged last
+                 k-tile) and gate / up (N = 29568), falcon-mamba's x_proj (N
+                 288) and dt_proj (K 256, shorter than one k-tile, with its
+                 bias), zamba2's bc_proj (N 128), at M = 1, 4, 8, 17, 256,
+                 every decode, fused and packed, 0 ulps; flash_attend at
+                 head_dim 112 (zamba2: G = 1) in all three formats (decode
+                 at T 1024, a 256-token chunk, ragged chunks; global and a
+                 300-token window), decode at G = 8 (qwen2-vl) and the
+                 vision prefill's in-chunk tail (S = T = 1040), 5e-5 -- then
+                 qwen2-vl-72b, all 80 layers: one vision prefill through
+                 api.prefill (1024 seeded patch embeddings + 16 tokens,
+                 M-RoPE positions from build_mrope_positions, both flash
+                 flags) and 16 greedy decode steps, then both engines on the
+                 launcher's traffic (8 requests, 6-token prompts, 8 new
+                 tokens); falcon-mamba-7b (64 layers) and zamba2-7b (81
+                 layers, flash decode at hd 112) through both engines on the
+                 launcher's traffic and one 128-token prompt through the
+                 staged engine's per-token prefill fallback; staged vs
+                 lockstep token differences logged, not gated; the twins:
+                 qwen2-vl 2 layers float32 (the vision prefill, then flash
+                 decode against its plain version; the C13 gap between the
+                 prefill routes logged), falcon-mamba 2 layers float32 (decode
+                 steps against the sequence form) and ternary (the qdense
+                 kernels against their plain versions), zamba2 7 layers
+                 float32 (flash decode at hd 112 against the dense oracle),
+                 5e-3 and equal argmax.  Load s, packed and peak GB, tokens/s
+                 and launches are logged (flash hd 112 > 0)
+ 12. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
                  (flash: at the bf16 tensor-core peak, the float32 one
                  logged beside it); qdense per site and per layer at M = 4
@@ -164,7 +196,10 @@ Phases, in order; any failure exits non-zero:
                  (grok's gate 5 of 8, arctic's 8 of 128; library: torch.bmm
                  over the bf16-dequantized (E, K, N) weights), quantize_rows
                  over the four (E * C, K) buffers of a decode tick, and the
-                 int8 router site at N 8, M = 4
+                 int8 router site at N 8, M = 4; the vlm_ssm phase's shapes:
+                 flash_attend kv_int8 at hd 112 (decode, B 4, T 1024, 32 x 32
+                 heads), qwen2-vl's down projection (K 29568), falcon-mamba's
+                 x_proj and dt_proj (torch.addmm with the bias), M = 4
 
 The traced ticks and chunks log device busy time, kernels per call and the
 qdense GEMV's device time and launches per tick.
@@ -1547,6 +1582,7 @@ def _quantize_twin(dev) -> None:
 # 9. families: the dense siblings at their published widths
 # ---------------------------------------------------------------------------
 GEMMA, QWEN110, PHI4 = "gemma3-12b", "qwen1.5-110b", "phi4-mini-3.8b"
+QWEN110_LAYERS = 40  # of 80: cut for the script's time limit (load 57 s at 80 layers)
 GEMMA_MAX_LEN = 2048
 # longest first, so the lockstep engine (one prompt token a tick) runs them side by side
 GEMMA_PROMPTS = [1900, 1700, 1300, 1025, 640, 255, 37, 1]
@@ -1787,8 +1823,11 @@ def _boot_family(dev, cfg, label):
     booted = _boot(cfg, dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    log(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-        f"{cfg.hd()}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}: load {load_s:.2f} s (init_quantized on the card), "
+    heads = f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd()}" if cfg.n_heads else "attention-free"
+    ssm = (f", Mamba{cfg.ssm_version} d_inner {cfg.ssm_expand * cfg.d_model} state {cfg.ssm_state}"
+           if cfg.ssm_state else "")
+    log(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, {heads}, d_ff {cfg.d_ff}{ssm}, vocab "
+        f"{cfg.padded_vocab}: load {load_s:.2f} s (init_quantized on the card), "
         f"packed weights {sum(qt.nbytes() for qt in _qtensors(booted[0])) / 1e9:.2f} GB, peak {_peak_gb():.2f} GB")
     return booted
 
@@ -1859,7 +1898,7 @@ def _gemma_twin(dev) -> None:
 def _family_qwen110(dev, totals, keyed) -> None:
     from repro_torch.launch import serve
 
-    cfg = _ptq_cfg(arch=QWEN110, kv_fmt="kv_int8", flash_prefill=True)
+    cfg = _ptq_cfg(QWEN110_LAYERS, arch=QWEN110, kv_fmt="kv_int8", flash_prefill=True)
     qparams, plan, api = _boot_family(dev, cfg, QWEN110)
     gen = torch.Generator(device=dev).manual_seed(SEED + 22)
     for block in qparams["blocks"]:  # seeded non-zero q / k / v biases (init gives zeros), so the epilogue adds them
@@ -1945,7 +1984,7 @@ def phase_families(dev, errs) -> tuple:
 # 10. moe: the MoE family at its published widths
 # ---------------------------------------------------------------------------
 GROK, ARCTIC = "grok-1-314b", "arctic-480b"
-GROK_LAYERS = 24  # of 64: ~31 GB packed; 64 layers (~84 GB) do not fit the card
+GROK_LAYERS = 16  # of 64 (~21 GB packed; 64 layers, ~84 GB, do not fit the card): cut from 24 for the time limit
 ARCTIC_LAYERS = 4  # of 35: ~14 GB packed, the 128-expert path at a few layers
 MOE_FORMATS = FORMATS  # every weight format over the experts
 EXPERT_SITES = [  # (name, E, K, N, capacity rows C): grok gate / up and down, arctic's
@@ -2006,22 +2045,25 @@ def _moe_launches() -> _KeyedLaunches:
 
 
 class _PlainKernels:
-    """Inside ``with``, the format entries and the quantize step run their
-    kernels' plain versions on CUDA tensors (the fused site's
+    """Inside ``with``, the format entries, the quantize step and flash run
+    their kernels' plain versions on CUDA tensors (the fused site's
     ``fused_qmm_ref``, ``packed_qmm_ref`` over every expert,
-    ``quantize_rows_plain``): the moe layer's plain path on the card, the
-    same torch code around them."""
+    ``quantize_rows_plain``, ``flash_attend_ref``): a path's plain version
+    on the card, the same torch code around them."""
 
     def __enter__(self):
         import importlib
 
+        from repro_torch.kernels import flash_prefill
         from repro_torch.kernels.fused_qmm import fused_qmm_ref
         from repro_torch.kernels.packed_qmm import packed_qmm_ref
         from repro_torch.kernels.quantize import quantize_rows_plain
         from repro_torch.quant import backends
 
-        self.saved = [(backends, "quantize_rows", backends.quantize_rows)]
+        self.saved = [(backends, "quantize_rows", backends.quantize_rows),
+                      (flash_prefill, "flash_attend", flash_prefill.flash_attend)]
         backends.quantize_rows = quantize_rows_plain
+        flash_prefill.flash_attend = flash_prefill.flash_attend_ref  # attention imports it at each call
         for fmt in ("ternary", "int4", "int8", "nf4"):
             mod = importlib.import_module(f"repro_torch.kernels.{fmt}_matmul")
             self.saved += [(mod, "packed_qmm", mod.packed_qmm), (mod, "fused_qmm", mod.fused_qmm)]
@@ -2325,7 +2367,355 @@ def phase_moe(dev, errs) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# 11. timings
+# 11. vlm_ssm: the VLM, SSM and hybrid families at their published widths
+# ---------------------------------------------------------------------------
+VLM, SSM, HYBRID = "qwen2-vl-72b", "falcon-mamba-7b", "zamba2-7b"
+VLM_TEXT, VLM_STEPS = 16, 16  # text tokens after the 1024 patch embeddings; greedy decode steps after the prefill
+VLM_MAX_LEN = 1088  # 1024 + 16 + 16 positions, 34 kv_mx blocks
+SSM_LONG_PROMPT = 128  # one prompt through the staged engine's per-token fallback
+HYBRID_TWIN_LAYERS = 7  # one superblock of 6 Mamba2 layers and its shared attention, plus a tail layer
+TWIN_TOKENS = 24  # the SSM twins: a forward pass over 24 tokens, or 24 decode steps
+# (label, K, N, bias, JSON row at M <= 8 or None): the new families' qdense shapes
+NEW_SITES = [
+    ("qwen2-vl down", 29568, 8192, False, "fused_qmm_ternary_k29568"),  # K = 57 x 512 + 384: a ragged last k-tile
+    ("qwen2-vl gate", 8192, 29568, False, None),
+    ("falcon-mamba x_proj", 8192, 288, False, "fused_qmm_ternary_x_proj"),
+    ("falcon-mamba dt_proj", 256, 8192, True, "fused_qmm_ternary_dt_proj"),  # K shorter than one k-tile
+    ("zamba2 bc_proj", 3584, 128, False, None),
+]
+NEW_SITE_ROWS = (1, 4, 8, 17, 256)
+HD112 = dict(b=4, t=1024, kh=32, g=1, hd=112)  # zamba2's shared attention: 32 heads over 32 kv heads
+HD112_DECODE_VALID = [1, 300, 777, 1024]
+HD112_CHUNK = dict(s=256, start=512)
+HD112_RAGGED = dict(s=(31, 255), starts=(77, 600))
+HD112_WINDOW = 300
+G8 = dict(b=4, t=1024, kh=8, g=8, hd=128)  # qwen2-vl: 64 query heads over 8 kv heads
+VISION_TAIL = dict(b=1, t=1024 + VLM_TEXT, kh=8, g=8, hd=128)  # the vision prefill's in-chunk tail, S = T = 1040
+VLM_SSM_ROWS = {  # JSON row -> what the phase counts for its launches: (route, K, N) or (flash mode, head_dim)
+    "fused_qmm_ternary_k29568": ("gemv", 29568, 8192),
+    "fused_qmm_ternary_x_proj": ("gemv", 8192, 288),
+    "fused_qmm_ternary_dt_proj": ("gemv", 256, 8192),
+    "flash_attend_int8_hd112": ("kv_int8/decode", 112),
+}
+
+
+def _vlm_ssm_launches() -> _KeyedLaunches:
+    """Launches by route, K and N (qdense: where fused_qmm / packed_qmm
+    plan the GEMV or the tile right before launching it) or by mode and
+    head_dim (flash_attend's ``launch_plan``).  Installed for the phase's
+    serving runs only."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import fused_qmm as fq
+    from repro_torch.kernels import packed_qmm as pq
+
+    wraps = [(mod, name, lambda a, route=route: (route, a[1], a[2])) for mod in (fq, pq)
+             for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"))]
+    wraps.append((fp, "launch_plan", lambda a: (f"{a[0]}/{'decode' if a[2] == 1 else 'prefill'}", a[6])))
+    return _KeyedLaunches(wraps)
+
+
+def _parity_vlm_ssm(dev, gen, errs) -> list:
+    """The new shapes against the plain versions: qdense at NEW_SITES, M =
+    1, 4, 8, 17, 256, every decode, fused and packed, 0 ulps; flash_attend
+    at head_dim 112 (G = 1) in every format -- decode at T 1024, a 256-token
+    chunk, ragged chunks, global and a 300-token window --, decode at G = 8
+    (hd 128) and the vision prefill's in-chunk tail (S = T = 1040, G = 8),
+    5e-5."""
+    from repro_torch.kernels.flash_prefill import flash_attend, flash_attend_ref
+    from repro_torch.kernels.fused_qmm import fused_qmm_ref
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.quant.formats import get_format
+
+    failures = []
+    for fmt in TILE_FORMATS:
+        decode = _decode_of(fmt)
+        for name, k, n, bias, key in NEW_SITES:
+            qt = _qsite(k, n, fmt, gen, dev)
+            b = (torch.randn((n,), generator=gen, device=dev) * 0.1).to(torch.bfloat16) if bias else None
+            for i, m in enumerate(NEW_SITE_ROWS):
+                x = _rows(m, k, gen, dev, (torch.bfloat16, torch.float32)[i % 2])
+                kw = dict(group=qt.group_size, bias=b, act_exponent=(None, -4)[i // 2 % 2])
+                got = _entry(fmt)(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
+                want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=decode, **kw)
+                checks = [(f"qdense {name} K={k} N={n} {fmt} M={m} x={str(x.dtype)[6:]} static_e="
+                           f"{kw['act_exponent']} bias={bias}", got, want)]
+                if fmt == "ternary" and key and m <= 8:
+                    errs[key] = max(errs.get(key, 0.0), float((got - want).abs().max()))
+                xq, _ = quantize_rows(x)
+                checks.append((f"packed_qmm {name} K={k} N={n} {fmt} M={m}",
+                               get_format(fmt).kernel(xq, qt.packed, qt.scale_m, group=qt.group_size),
+                               packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=decode, group=qt.group_size)))
+                for what, g, w in checks:
+                    torch.cuda.synchronize()
+                    ulps = _ulps(g, w)
+                    ok = bool(torch.isfinite(g).all()) and ulps == 0
+                    log(f"parity {what}: max_abs_err={float((g - w).abs().max()):.3e} ulps={ulps} "
+                        f"{'OK' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(what)
+            del qt
+            torch.cuda.empty_cache()
+
+    fs = HD112
+    cases = [(f, fs, 1, [v - 1 for v in HD112_DECODE_VALID], HD112_DECODE_VALID) for f in SHORT]
+    cases += [(f, dict(fs, b=1), HD112_CHUNK["s"], [HD112_CHUNK["start"]], [HD112_CHUNK["start"] + HD112_CHUNK["s"]])
+              for f in SHORT]
+    cases += [(f, dict(fs, b=2), s, list(HD112_RAGGED["starts"]), [a + s for a in HD112_RAGGED["starts"]])
+              for f in SHORT for s in HD112_RAGGED["s"]]
+    cases += [(f, G8, 1, [v - 1 for v in HD112_DECODE_VALID], HD112_DECODE_VALID) for f in SHORT]
+    tail = VISION_TAIL  # the vision prefill's in-chunk tail: its own bf16 K/V, S = T
+    cases.append(("kv_bf16", tail, tail["t"], [0], [tail["t"]]))
+    for fmt, shape, s, starts, valid in cases:
+        case = _flash_case(fmt, shape, gen, dev, s=s, starts=starts, valid=valid)
+        for window in (None, HD112_WINDOW):
+            if window is not None:
+                case = case[:4] + (torch.tensor([[window]], dtype=torch.int32, device=dev),)
+            args = _flash_args(case)
+            got = flash_attend(*args, fmt=fmt)
+            want = flash_attend_ref(*args, fmt=fmt)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if fmt == "kv_int8" and s == 1 and shape["hd"] == 112:
+                errs["flash_attend_int8_hd112"] = max(errs.get("flash_attend_int8_hd112", 0.0), err)
+            ok = bool(torch.isfinite(got).all()) and err <= 5e-5
+            log(f"parity flash {fmt} hd={shape['hd']} G={shape['g']} Kh={shape['kh']} B={len(starts)} S={s} "
+                f"T={shape['t']} start={starts} valid={valid} window={window}: max_abs_err={err:.3e} (atol 5e-5) "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash {fmt} hd {shape['hd']} G {shape['g']} S={s} window={window}")
+    return failures
+
+
+def _vision_batch(cfg, dev, n_text=VLM_TEXT):
+    """One request's seeded patch embeddings (bf16, as a frontend would
+    hand them over), text tokens and M-RoPE positions."""
+    from repro_torch.models.vlm import build_mrope_positions
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    nv = cfg.n_frontend_tokens
+    return {"tokens": torch.randint(0, cfg.vocab, (1, n_text), generator=gen, device=dev, dtype=torch.int32),
+            "vision_embeds": (torch.randn((1, nv, cfg.d_model), generator=gen, device=dev) * 0.1).to(
+                getattr(torch, cfg.dtype)),
+            "positions": build_mrope_positions(1, nv, n_text, device=dev)}
+
+
+def _vision_logits(api, params, batch, steps, max_len=VLM_MAX_LEN):
+    """Last-token logits of the vision prefill and of ``steps`` greedy
+    decode steps after it, (1 + steps, vocab) float32."""
+    cache = api.init_cache(1, max_len)
+    out = []
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, batch, cache)
+        pos = batch["positions"].shape[-1]
+        for i in range(steps + 1):
+            out.append(logits[0, -1].float())
+            if i == steps:
+                break
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            logits, cache = api.decode(params, tok, pos + i, cache)
+    return torch.stack(out)
+
+
+def _family_vlm(dev, totals) -> None:
+    """qwen2-vl-72b at all 80 layers: one vision prefill (1024 patch
+    embeddings + 16 tokens) through ``api.prefill`` with both flash flags
+    over kv_int8, 16 greedy decode steps; both engines on the launcher's
+    text traffic."""
+    from repro_torch.launch import serve
+
+    cfg = _ptq_cfg(arch=VLM, kv_fmt="kv_int8", flash_prefill=True)
+    booted = _boot_family(dev, cfg, VLM)
+    qparams, _, api = booted
+    batch = _vision_batch(cfg, dev)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = _vision_logits(api, qparams, batch, VLM_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _read_counts()
+    _add(totals, launches)
+    ok = bool(torch.isfinite(logits).all()) and logits.shape == (VLM_STEPS + 1, cfg.padded_vocab)
+    log(f"{VLM} vision prefill: {cfg.n_frontend_tokens} patch embeddings + {VLM_TEXT} tokens (S = "
+        f"{batch['positions'].shape[-1]}, M-RoPE positions), then {VLM_STEPS} greedy decode steps over kv_int8 in "
+        f"{dt:.2f} s; tokens {logits.argmax(-1).tolist()}; finite {ok}; launches "
+        f"{({k: n for k, n in launches.items() if n})}")
+    _require_launches(launches, ["fused_qmm_ternary", "fused_qmm_ternary_prefill", "fused_qmm_int8",
+                                 "flash_attend_bf16_prefill", "flash_attend_int8"], f"{VLM} vision prefill")
+    if not ok:
+        raise SystemExit(f"{VLM}: the vision prefill's logits are not finite or not of their shape")
+    prompts = serve.draw_prompts(8, cfg.vocab)
+    req = {"staged": SERVE_REQUIRED["staged"], "lockstep": SERVE_REQUIRED["lockstep"]}
+    outs = {}
+    for kind in ("staged", "lockstep"):
+        outs[kind], launches = _run_engine(kind, booted, prompts, max_len=STAGED_MAX_LEN, new=serve.NEW_TOKENS,
+                                           label=VLM, required=req[kind])
+        _add(totals, launches)
+    _compare_engines(VLM, outs)
+    del booted, qparams, api
+    _free()
+
+
+def _vlm_twin(dev) -> None:
+    """The 2-layer full-width float32 twin of the vision prefill and 4
+    decode steps: flash decode (G = 8) against its plain version after the
+    prefill on the oracle route, 5e-3 and equal argmax (the in-chunk flash
+    tail takes a bf16 model's K/V; its vision shape is held in the parity
+    cases).  ROADMAP Queue C13: the oracle route masks by the temporal id,
+    so its prefill logits differ from the flash route's (here its plain
+    version), as in the reference; the gap is logged, not gated."""
+    from repro_torch.models import build_model
+
+    fcfg = dataclasses.replace(_ptq_cfg(2, arch=VLM, kv_fmt="kv_int8", dtype="float32"),
+                               quant=dataclasses.replace(_ptq_cfg().quant, mode="fp"))
+    fapi = build_model(fcfg, device=dev)
+    fparams = fapi.init(torch.Generator(device=dev).manual_seed(SEED))
+    batch = _vision_batch(fcfg, dev)
+    before = _entries()["flash"].launches
+    got = _vision_logits(fapi, fparams, batch, 4)
+    launched = _entries()["flash"].launches - before
+    with _PlainKernels():
+        want = _vision_logits(fapi, fparams, batch, 4)
+        flash_route = _vision_logits(build_model(dataclasses.replace(fcfg, flash_prefill=True), device=dev), fparams,
+                                     batch, 0)
+    c13 = float((flash_route[0] - want[0]).abs().max())
+    diff, same = _twin_diff(got, want)
+    ok = diff <= 5e-3 and same and launched == 4 * fcfg.n_layers
+    log(f"twin fp32 {VLM} kv_int8 (2 layers, full width, vision prefill S = {batch['positions'].shape[-1]} + 4 decode "
+        f"steps, {launched} flash decode launches): logits max|kernels - plain versions| = {diff:.3e} (atol 5e-3; "
+        f"logit scale {float(want.abs().max()):.3e}); argmax equal {same} {'OK' if ok else 'FAIL'}; the flash "
+        f"route's prefill logits differ from the oracle route's by {c13:.3e} (ROADMAP Queue C13, as in the "
+        f"reference; not gated)")
+    del fparams, fapi
+    _free()
+    if not ok:
+        raise SystemExit(f"twin {VLM}: the kernel path disagrees with the plain path")
+
+
+def _family_recurrent(dev, totals, arch, required) -> None:
+    """All layers of ``arch`` through both engines on the launcher's
+    traffic, then one SSM_LONG_PROMPT-token prompt through the staged
+    engine's per-token prefill fallback."""
+    from repro_torch.launch import serve
+
+    cfg = _ptq_cfg(arch=arch, kv_fmt="kv_int8")
+    booted = _boot_family(dev, cfg, arch)
+    if booted[2].prefill_chunk is not None:
+        raise SystemExit(f"{arch}: expected no prefill_chunk (the staged engine's per-token fallback)")
+    prompts = serve.draw_prompts(8, cfg.vocab)
+    outs = {}
+    for kind in ("staged", "lockstep"):
+        outs[kind], launches = _run_engine(kind, booted, prompts, max_len=STAGED_MAX_LEN, new=serve.NEW_TOKENS,
+                                           label=arch, required=required)
+        _add(totals, launches)
+    _compare_engines(arch, outs)
+    long_prompt = torch.randint(0, cfg.vocab, (SSM_LONG_PROMPT,), generator=torch.Generator().manual_seed(SEED + 41))
+    _, launches = _run_engine("staged", booted, [long_prompt.tolist()], max_len=STAGED_MAX_LEN, new=NEW,
+                              label=f"{arch} one {SSM_LONG_PROMPT}-token prompt (per-token fallback)",
+                              required=required)
+    _add(totals, launches)
+    del booted
+    _free()
+
+
+def _ssm_decode_logits(api, params, toks):
+    """(steps, B, vocab) float32 logits of one decode step a token."""
+    cache = api.init_cache(toks.shape[0], STAGED_MAX_LEN)
+    out = []
+    with torch.inference_mode():
+        for t in range(toks.shape[1]):
+            logits, cache = api.decode(params, toks[:, t:t + 1], t, cache)
+            out.append(logits[:, -1].float())
+    return torch.stack(out)
+
+
+def _ssm_twins(dev) -> None:
+    """falcon-mamba: the 2-layer full-width float32 twin (24 decode steps
+    through the recurrent state against the sequence form's logits) and
+    its ternary-PTQ twin (decode steps, the qdense kernels against their
+    plain versions); zamba2: the HYBRID_TWIN_LAYERS float32 twin (a shared
+    block needs 6 Mamba2 layers before it), flash decode at hd 112 against
+    the dense oracle over the same kv_int8 cache.  5e-3, equal argmax."""
+    from repro_torch.models import build_model, init_quantized
+
+    fp = dict(quant=dataclasses.replace(_ptq_cfg().quant, mode="fp"))
+    failures = []
+
+    def tokens(cfg):
+        return torch.randint(0, cfg.vocab, (2, TWIN_TOKENS), generator=torch.Generator().manual_seed(SEED + 42)).to(dev)
+
+    def report(label, got, want):
+        diff, same = _twin_diff(got, want)
+        ok = diff <= 5e-3 and same
+        log(f"twin {label}: logits max diff {diff:.3e} (atol 5e-3; logit scale {float(want.abs().max()):.3e}); "
+            f"argmax equal {same} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+
+    fcfg = dataclasses.replace(_ptq_cfg(2, arch=SSM, dtype="float32"), **fp)
+    toks = tokens(fcfg)
+    fapi = build_model(fcfg, device=dev)
+    fparams = fapi.init(torch.Generator(device=dev).manual_seed(SEED))
+    with torch.inference_mode():
+        seq = fapi.forward(fparams, {"tokens": toks}).float().transpose(0, 1)
+    report(f"fp32 {SSM} (2 layers, full width, {TWIN_TOKENS} tokens): decode steps vs the sequence form",
+           _ssm_decode_logits(fapi, fparams, toks), seq)
+    del fparams, fapi
+    _free()
+    qparams, _, qapi = init_quantized(build_model(_ptq_cfg(2, arch=SSM), device=dev),
+                                      torch.Generator(device=dev).manual_seed(SEED))
+    got = _ssm_decode_logits(qapi, qparams, toks)
+    with _PlainKernels():
+        want = _ssm_decode_logits(qapi, qparams, toks)
+    report(f"ternary {SSM} (2 layers, full width, {TWIN_TOKENS} decode steps, ulps {_ulps(got, want)}): "
+           "qdense kernels vs plain versions", got, want)
+    del qparams, qapi
+    _free()
+    hcfg = dataclasses.replace(_ptq_cfg(HYBRID_TWIN_LAYERS, arch=HYBRID, kv_fmt="kv_int8", dtype="float32"), **fp)
+    toks = tokens(hcfg)
+    hapi = build_model(hcfg, device=dev)
+    hparams = hapi.init(torch.Generator(device=dev).manual_seed(SEED))
+    oracle = build_model(dataclasses.replace(hcfg, flash_decode=False), device=dev)
+    report(f"fp32 {HYBRID} kv_int8 ({HYBRID_TWIN_LAYERS} layers: 6 Mamba2, a shared block, a tail layer; full width, "
+           f"{TWIN_TOKENS} decode steps): flash decode at hd 112 vs the dense oracle",
+           _ssm_decode_logits(hapi, hparams, toks), _ssm_decode_logits(oracle, hparams, toks))
+    del hparams, hapi, oracle
+    _free()
+    if failures:
+        raise SystemExit(f"twins failed: {failures}")
+
+
+def phase_vlm_ssm(dev, errs) -> tuple:
+    """Parity of the new shapes, then qwen2-vl-72b, falcon-mamba-7b and
+    zamba2-7b at their published widths and their twins: (launches by JSON
+    row, launches of the phase's own rows)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    failures = _parity_vlm_ssm(dev, gen, errs)
+    if failures:
+        raise SystemExit(f"vlm_ssm parity failed: {failures}")
+    keyed = _vlm_ssm_launches()
+    totals: dict = {}
+    try:
+        _family_vlm(dev, totals)
+        _family_recurrent(dev, totals, SSM, ["fused_qmm_ternary", "fused_qmm_int8"])
+        _family_recurrent(dev, totals, HYBRID, ["fused_qmm_ternary", "fused_qmm_int8", "flash_attend_int8"])
+    finally:
+        keyed.close()
+    own = {row: keyed.counts.get(key, 0) for row, key in VLM_SSM_ROWS.items()}
+    log(f"vlm_ssm: serving runs {time.perf_counter() - t0:.1f} s; launches of the new rows {own}")
+    missing = [row for row, n in own.items() if n <= 0]
+    if missing:
+        raise SystemExit(f"vlm_ssm: the serving runs never launched {missing}")
+    _vlm_twin(dev)
+    _ssm_twins(dev)
+    log(f"vlm_ssm: phase {time.perf_counter() - t0:.1f} s")
+    return totals, own
+
+
+# ---------------------------------------------------------------------------
+# 12. timings
 
 # ---------------------------------------------------------------------------
 class _Timer:
@@ -2387,11 +2777,11 @@ def _bound(nbytes: float, ops: float, peak_ops: float) -> dict:
                 t_bytes=t_bytes, t_ops=t_ops)
 
 
-def _time_site(timer, qt, w_bf16, fmt, kernel, m, act, gen, dev) -> dict:
-    """One site's kernel, plain version and torch.matmul on the bf16
-    dequantized weights; the bound from the bytes the call moves (x or its
-    int8 mantissas, packed weights and scales, f32 out) and its int8
-    operations."""
+def _time_site(timer, qt, w_bf16, fmt, kernel, m, act, gen, dev, bias=None) -> dict:
+    """One site's kernel, plain version and torch.matmul (torch.addmm with
+    a ``bias``) on the bf16 dequantized weights; the bound from the bytes
+    the call moves (x or its int8 mantissas, packed weights and scales, the
+    bias, f32 out) and its int8 operations."""
     from repro_torch.kernels.fused_qmm import fused_qmm_ref
     from repro_torch.kernels.packed_qmm import packed_qmm_ref
     from repro_torch.kernels.quantize import quantize_rows
@@ -2406,11 +2796,13 @@ def _time_site(timer, qt, w_bf16, fmt, kernel, m, act, gen, dev) -> dict:
         plain = lambda: packed_qmm_ref(xq, qt.packed, qt.scale_m, decode=_decode_of(fmt),  # noqa: E731
                                        group=qt.group_size)
     else:
-        entry, x_bytes, kw = _entry(fmt), x.numel() * x.element_size(), dict(group=qt.group_size, act=act)
+        entry, x_bytes = _entry(fmt), x.numel() * x.element_size()
+        kw = dict(group=qt.group_size, act=act, bias=bias)
         fn = lambda: entry(x, qt.packed, qt.scale_m, qt.scale_e, **kw)  # noqa: E731
         plain = lambda: fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=_decode_of(fmt), **kw)  # noqa: E731
-    nbytes = x_bytes + qt.nbytes() + m * n * 4
-    row = dict(ms=timer(fn), plain_ms=timer(plain, iters=3, warmup=1), library_ms=timer(lambda: torch.matmul(x, w_bf16)),
+    nbytes = x_bytes + qt.nbytes() + m * n * 4 + (0 if bias is None else bias.numel() * bias.element_size())
+    library = (lambda: torch.matmul(x, w_bf16)) if bias is None else (lambda: torch.addmm(bias, x, w_bf16))
+    row = dict(ms=timer(fn), plain_ms=timer(plain, iters=3, warmup=1), library_ms=timer(library),
                **_bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S))
     return row
 
@@ -2474,6 +2866,7 @@ def phase_timings(dev) -> dict:
     rows["flash_attention"] = _time_flash_attention(timer, gen, dev)
     _time_families(timer, gen, dev, rows)
     _time_moe(timer, gen, dev, rows)
+    _time_vlm_ssm(timer, gen, dev, rows)
     return rows
 
 
@@ -2544,6 +2937,31 @@ def _time_moe(timer, gen, dev, rows) -> None:
     log(f"time fused_qmm_int8_router (K={k} N={n} int8 M={M_ROWS}): kernel {r['ms']:.4f} ms, bound "
         f"{r['bound_ms']:.5f} ms (by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, torch.matmul bf16 "
         f"{r['library_ms']:.4f} ms")
+
+
+def _time_vlm_ssm(timer, gen, dev, rows) -> None:
+    """The VLM, SSM and hybrid families' new shapes: flash_attend kv_int8
+    at hd 112 (zamba2's decode tick: B 4, T 1024, 32 heads over 32 kv
+    heads), qwen2-vl's down projection (K 29568, a ragged last k-tile) and
+    falcon-mamba's x_proj (N 288) and dt_proj (K 256, with its bias), fused
+    ternary at M = 4."""
+    from repro_torch.quant.formats import dequantize_weights
+
+    case = _flash_case("kv_int8", HD112, gen, dev, s=1, starts=[v - 1 for v in HD112_DECODE_VALID],
+                       valid=HD112_DECODE_VALID)
+    rows["flash_attend_int8_hd112"] = _time_flash(timer, "kv_int8", HD112, case, "decode")
+    for name, k, n, bias, row in NEW_SITES:
+        if row is None:
+            continue
+        qt = _qsite(k, n, "ternary", gen, dev)
+        b = (torch.randn((n,), generator=gen, device=dev) * 0.1).to(torch.bfloat16) if bias else None
+        rows[row] = r = _time_site(timer, qt, dequantize_weights(qt).to(torch.bfloat16), "ternary", "fused", M_ROWS,
+                                   None, gen, dev, bias=b)
+        log(f"time {row} ({name}: K={k} N={n} ternary M={M_ROWS}{' + bias' if bias else ''}): kernel {r['ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.5f} ms (by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+            f"torch.{'addmm' if bias else 'matmul'} bf16 {r['library_ms']:.4f} ms")
+        del qt
+        torch.cuda.empty_cache()
 
 
 def _time_split(timer, gen, dev) -> None:
@@ -2697,7 +3115,7 @@ KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it 
 
 def _kernel_line(errs, launches, rows) -> dict:
     out = []
-    for name in list(MODES) + list(FAMILY_ROWS) + list(MOE_ROWS):
+    for name in list(MODES) + list(FAMILY_ROWS) + list(MOE_ROWS) + list(VLM_SSM_ROWS):
         source, replaces = next(v for prefix, v in KERNEL_SOURCES.items() if name.startswith(prefix))
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2725,7 +3143,7 @@ def main() -> None:
                         ("serve", phase_serve), ("artifact", phase_artifact)):
         for k, v in timed(name, phase, dev).items():
             launches[k] += v
-    for name, phase in (("families", phase_families), ("moe", phase_moe)):
+    for name, phase in (("families", phase_families), ("moe", phase_moe), ("vlm_ssm", phase_vlm_ssm)):
         totals, own = timed(name, phase, dev, errs)
         for k, v in totals.items():
             launches[k] += v
@@ -2746,7 +3164,8 @@ def main() -> None:
         f"over every expert of a site (the *_routed* rows: a decode tick's routed experts, the bound from their "
         f"weights), "
         f"the router site or a decode tick's capacity buffer, their launches those of their shape in the moe phase's "
-        f"serving runs")
+        f"serving runs; the vlm_ssm rows (*_k29568, *_x_proj, *_dt_proj, *_hd112) are single sites or calls, their "
+        f"launches those of their shape in the vlm_ssm phase's serving runs")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

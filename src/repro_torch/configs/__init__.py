@@ -2,10 +2,12 @@
 
 The dense family is registered: ``qwen3-8b``, ``phi4-mini-3.8b``,
 ``qwen1.5-110b`` (qkv biases) and ``gemma3-12b`` (5:1 local:global sliding
-windows, head_dim 240); and the MoE family: ``grok-1-314b`` (8 experts)
-and ``arctic-480b`` (128 experts beside a dense residual MLP).  The VLM,
-SSM, hybrid and encoder-decoder families of the reference come with later
-slices of the port.
+windows, head_dim 240); the MoE family: ``grok-1-314b`` (8 experts) and
+``arctic-480b`` (128 experts beside a dense residual MLP); the VLM
+``qwen2-vl-72b`` (M-RoPE, prepended patch embeddings); the SSM
+``falcon-mamba-7b`` (Mamba1) and the hybrid ``zamba2-7b`` (Mamba2 with
+two shared attention blocks, head_dim 112).  The reference's
+encoder-decoder family comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ _MODULES: Dict[str, str] = {
     "gemma3-12b": "gemma3_12b",
     "grok-1-314b": "grok_1_314b",
     "arctic-480b": "arctic_480b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -27,7 +27,7 @@ class QuantConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense | moe (the families ported so far)
+    family: str  # dense | moe | vlm | ssm | hybrid (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int

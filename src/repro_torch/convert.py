@@ -1,13 +1,15 @@
 """Parameters and caches of the JAX package -> those of the port.
 
-``cache_from_jax(tree)`` turns the reference's KV cache (a dict of stacked
-(L, B, T, ...) leaves: bf16, int8 mantissas and exponents, uint8 nibble
-pairs) into the port's, byte for byte.
+``cache_from_jax(tree)`` turns the reference's decode cache (a dict of
+stacked (L, B, ...) leaves: KV in bf16, int8 mantissas and exponents,
+uint8 nibble pairs; float32 SSM states, nested as ``{"ssm": {"h",
+"conv"}}``) into the port's, byte for byte.
 
 ``params_from_jax(tree)`` takes the reference's fp parameter tree or its
-PTQ tree (numpy arrays or anything ``numpy.asarray`` accepts), with blocks
-stacked on a leading layer axis, and returns the port's tree: ``blocks`` as
-a list of per-layer dicts, QTensors rebuilt from ``packed`` / ``scale_m`` /
+PTQ tree (numpy arrays or anything ``numpy.asarray`` accepts), with layers
+stacked on a leading axis, and returns the port's tree: each of
+``LAYER_LISTS`` (``blocks``; the hybrid's ``mamba_stack``, ``tail_stack``
+and ``shared``) as a list of per-layer dicts, QTensors rebuilt from ``packed`` / ``scale_m`` /
 ``scale_e`` (uint32 words viewed as int32 -- the same bytes).  MoE expert
 leaves keep their expert axis: an (L, E, ...) QTensor becomes one (E, ...)
 QTensor a layer, an (L, E, K, N) float leaf (E, K, N) ones.  The
@@ -23,6 +25,9 @@ import torch
 
 from repro_torch.core.quantizer import QTensor
 from repro_torch.device import resolve_device
+
+# top-level keys whose subtree the reference stacks on a layer axis and the port keeps as a list
+LAYER_LISTS = ("blocks", "mamba_stack", "tail_stack", "shared")
 
 
 def _is_qtensor(x) -> bool:
@@ -69,7 +74,7 @@ def params_from_jax(tree, device=None):
     dev = resolve_device(device)
     out = {}
     for key, val in tree.items():
-        if key == "blocks":
+        if key in LAYER_LISTS:
             out[key] = [_convert(val, dev, i) for i in range(_n_layers(val))]
         else:
             out[key] = _convert(val, dev)
@@ -81,4 +86,5 @@ def cache_from_jax(cache, device=None):
     cache: the same leaf names, dtypes and bytes."""
     dev = resolve_device(device)
     # a copy: the port writes its cache in place, numpy views may be read-only
-    return {name: _tensor(np.array(leaf), dev) for name, leaf in cache.items()}
+    return {name: cache_from_jax(leaf, dev) if isinstance(leaf, dict) else _tensor(np.array(leaf), dev)
+            for name, leaf in cache.items()}

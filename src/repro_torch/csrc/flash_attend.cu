@@ -25,18 +25,22 @@
 // window) are skipped, and so are, per warp, tiles outside the warp's: they
 // would add exact zeros.
 //
-// Head dims 16, 32, 64, 128 and 240 (gemma3).  At 240 a K / V plane row is
-// 248 bf16 (496 bytes: ldmatrix rows still on distinct banks), the mma
-// steps are 15 (k16) and 30 (n8), and a kv_mx row is 120 bytes, copied in
-// 8-byte pieces (kv_mx at hd 16 too); prefill takes 222,208 bytes of
-// shared memory (kv_bf16), 220,416 (kv_int8), 189,696 (kv_mx): one block
-// an SM.
+// Head dims 16, 32, 64, 112 (zamba2), 128 and 240 (gemma3).  At 240 a K / V
+// plane row is 248 bf16 (496 bytes: ldmatrix rows still on distinct banks),
+// the mma steps are 15 (k16) and 30 (n8), and a kv_mx row is 120 bytes,
+// copied in 8-byte pieces (kv_mx at hd 16 too); prefill takes 222,208
+// bytes of shared memory (kv_bf16), 220,416 (kv_int8), 189,696 (kv_mx): one
+// block an SM.  At 112 a plane row is 120 bf16 (240 bytes, 16-byte aligned,
+// its 8 ldmatrix rows 60 words apart: distinct banks), the mma steps are 7
+// (k16) and 14 (n8), rows are 224 bytes (kv_bf16), 112 (kv_int8) and 56
+// (kv_mx, 8-byte pieces); prefill takes 107,520 / 105,728 / 91,392 bytes.
 //
 // S == 1 (decode): grid (B * Kh, splits), 4 warps, on the CUDA cores (G
 // rows a pair are too few for an mma tile).  Split z covers keys
 // [z * ks, (z + 1) * ks) of the live range; HD / 8 lanes share a key row
 // (rounded up to a power of two: at hd 240, 30 lanes of a warp's 32 and a
-// key a warp step, the last two lanes idle), each loading its 8 values
+// key a warp step, the last two lanes idle; at hd 112, 14 of 16 and two
+// keys a warp step), each loading its 8 values
 // straight into registers (16 bytes of kv_bf16, 8 of kv_int8, 4 of kv_mx)
 // and dotting them with its 8 query values per row.
 // The split writes its (m, l, acc) to the partials, then counts itself in on
@@ -529,6 +533,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* k
     case 16: return launch<FMT, 16>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem, s);
     case 32: return launch<FMT, 32>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem, s);
     case 64: return launch<FMT, 64>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem, s);
+    case 112: return launch<FMT, 112>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem,
+                                      s);
     case 128: return launch<FMT, 128>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem,
                                       s);
     case 240: return launch<FMT, 240>(q, k, v, ke, ve, q_start, valid, window, part, counters, o, B, sh, scale, smem,

@@ -5,7 +5,10 @@ at the repository root (a directory ``.gitignore`` lists) and loads through
 ctypes: a plain C interface, no PyTorch headers, so a build takes seconds.
 The file name carries a hash of the source, the shared headers and the
 flags, so an edited source rebuilds and an unchanged one is reused.
-``build_all`` starts one nvcc per source at once and waits for all of them.
+``build_all`` starts one nvcc per source at once and waits for all of them;
+each nvcc splits its device compilation over the host's cores
+(``-split-compile=0``: the template-heavy qdense sources took ~230 s alone,
+~90 s split, on the 8 cores beside the H100).
 
 Every kernel entry counts its launches (``counted``, ``count_launch``), so a
 run can show that its path went through the kernels.  Kernels that combine
@@ -32,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fused_qmm", "packed_qmm", "quantize_rows", "flash_attend", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-split-compile=0", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 # The quantized dense kernels take M <= GEMV_MAX_ROWS rows with their GEMV

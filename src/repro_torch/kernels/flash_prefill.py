@@ -73,7 +73,7 @@ FORMATS = ("kv_bf16", "kv_int8", "kv_mx")
 _FMT_IDS = {"kv_bf16": 0, "kv_int8": 1, "kv_mx": 2}
 _MAX_SMEM = 232_448  # dynamic shared memory a block may have (227 KB)
 _DECODE_MAX_SMEM = 48 * 1024  # the decode kernel runs without raising the cap
-HEAD_DIMS = (16, 32, 64, 128, 240)  # the kernel's instances (240: gemma3)
+HEAD_DIMS = (16, 32, 64, 112, 128, 240)  # the kernel's instances (112: zamba2, 240: gemma3)
 ROW_TILE = 64  # prefill rows a block: 4 warps of 16 (the mma M)
 KEY_TILE = 64  # prefill keys a tile
 _MAX_G = 8  # decode rows a block holds in registers at a time
@@ -218,7 +218,7 @@ def _check_cache(fmt, k, v, ke, ve, b, t, kh, hd):
     elif fmt == "kv_int8":
         want = [("k", k, torch.int8, (b, t, kh, hd)), ("v", v, torch.int8, (b, t, kh, hd)),
                 ("ke", ke, torch.int8, (b, t, kh, 1)), ("ve", ve, torch.int8, (b, t, kh, 1))]
-    else:  # rows of hd / 2 bytes, copied 16 bytes at a time, or 8 where they are not whole 16 (hd 240: 120)
+    else:  # rows of hd / 2 bytes, copied 16 bytes at a time, or 8 where they are not whole 16 (hd 112: 56, 240: 120)
         want = [("k", k, torch.uint8, (b, t, kh, hd // 2)), ("v", v, torch.uint8, (b, t, kh, hd // 2)),
                 ("ke", ke, torch.int8, (b, t // MX_KV_BLOCK, kh, 1)),
                 ("ve", ve, torch.int8, (b, t // MX_KV_BLOCK, kh, 1))]

@@ -10,6 +10,11 @@ engine (default) or the lockstep oracle, with the fault-tolerance knobs.
         --group-size 64 --kv-fmt kv_int8 --flash-decode --flash-prefill \\
         --max-len 1024 --prefill-chunk 256          # full width, on the card
 
+``--arch`` takes every registered config: the dense and MoE families, the
+VLM qwen2-vl-72b (text-only prompts, M-RoPE), the SSM falcon-mamba-7b and
+the hybrid zamba2-7b (the staged engine prefills the last two a token at a
+time).
+
 Two boot modes, as the reference's:
 
   * quantize on boot (``--arch``): the model is built on ``--device`` (the

@@ -1,5 +1,8 @@
-"""Grouped-query attention with qk-norm, RoPE and KV-cache decode
-(counterpart of ``repro/models/attention.py``, dense-family flavours).
+"""Grouped-query attention with qk-norm, RoPE or M-RoPE (qwen2-vl) and
+KV-cache decode (counterpart of ``repro/models/attention.py``; its
+cross-attention comes with the enc-dec family).  Under M-RoPE, positions
+are (3, B, S) and the oracle routes mask causality by the temporal
+component, as the reference does (ROADMAP Queue C13).
 
 Read paths over the cache, as in the reference:
 
@@ -151,7 +154,7 @@ def _flash_self_path(q, k, v, window, cfg):
 
 
 def attention(
-    p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, ctx: QuantCtx, path: str,
+    p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, ctx: QuantCtx, path: str,  # (S,) | (B,S) | (3,B,S)
     *, causal: bool = True, window: Optional[int] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None, cache_index=None,
     chunk: int = 1024, attend_cache: bool = False,
@@ -170,9 +173,14 @@ def attention(
     if cfg.qk_norm:
         q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
-    q_pos = positions
+    if cfg.mrope:
+        q = layers.apply_mrope(q, positions, cfg.rope_theta)
+        k = layers.apply_mrope(k, positions, cfg.rope_theta)
+        q_pos = positions[0]  # the temporal component orders causality (ROADMAP Queue C13)
+    else:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+        q_pos = positions
 
     decode = cache is not None and (x.shape[1] == 1 or attend_cache)
     if cache is not None:

@@ -91,6 +91,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections=(1, 1, 2)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: positions (3, ..., S) = (t, h, w) ids; the
+    hd/2 frequency lanes are split across the three components in the ratio
+    ``sections`` (1:1:2 t:h:w by default), each lane rotating by its
+    component's position."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    n = hd // 2
+    total = sum(sections)
+    bounds = [n * sum(sections[:i + 1]) // total for i in range(3)]
+    lane = torch.arange(n, device=x.device)
+    comp = torch.where(lane < bounds[0], 0, torch.where(lane < bounds[1], 1, 2))
+    pos = positions.to(torch.float32)[..., None] * torch.ones_like(freqs)  # (3, ..., S, hd/2)
+    pos = torch.gather(pos, 0, comp.expand(1, *positions.shape[1:], n))[0]  # each lane's component
+    angles = pos * freqs
+    sin, cos = torch.sin(angles)[..., None, :], torch.cos(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def init_mlp(gen, d_model: int, d_ff: int, dtype, device, path: str = "",
              leaf: Leaf = keep) -> Params:
     return {

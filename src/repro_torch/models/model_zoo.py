@@ -1,8 +1,10 @@
-"""Model API for the dense and MoE families (counterpart of
-``repro/models/model_zoo.py``): qwen3-8b, phi4-mini-3.8b, qwen1.5-110b
-and gemma3-12b (``window_schedule``'s local and global layers);
-grok-1-314b and arctic-480b (``models/moe.py``, arctic with its dense
-residual MLP).
+"""Model API of the ported families (counterpart of
+``repro/models/model_zoo.py``): dense -- qwen3-8b, phi4-mini-3.8b,
+qwen1.5-110b and gemma3-12b (``window_schedule``'s local and global
+layers); MoE -- grok-1-314b and arctic-480b (``models/moe.py``, arctic
+with its dense residual MLP); VLM -- qwen2-vl-72b (``models/vlm.py``:
+M-RoPE, prepended patch embeddings); SSM -- falcon-mamba-7b
+(``models/ssm_lm.py``); hybrid -- zamba2-7b (``models/hybrid.py``).
 
 ``build_model(cfg)`` returns a ``ModelApi`` bound to a device -- the card
 unless the caller passes ``device="cpu"``; with no card and no explicit
@@ -14,10 +16,14 @@ CPU request it raises.  Its members:
   prefill(params, batch, cache) -> (last-token logits, cache)
   decode(params, token, pos, cache) -> (logits, cache)
   prefill_chunk(params, tokens, start, cache) -> (last-token logits, cache)
-      one (B, S) chunk of prompt at [start, start + S) against the whole cache
+      one (B, S) chunk of prompt at [start, start + S) against the whole
+      cache; None for the SSM and hybrid families, whose recurrent state
+      has no chunk graph (the staged engine prefills them a token at a
+      time through ``decode``)
   insert(cache, prefix, slot) -> cache
       a B=1 prefix cache copied into batch row ``slot`` (every leaf's row
-      is overwritten, so nothing of the slot's previous occupant survives)
+      is overwritten, so nothing of the slot's previous occupant survives:
+      an SSM state, unlike a KV row, is not masked by position)
 
 PTQ: ``quantize_and_plan`` (optionally calibrated on ``make_smoke_batch``
 batches) or ``init_quantized`` (one site at a time, never the whole float
@@ -33,8 +39,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, config_from_dict, config_to_dict
+from repro_torch.convert import LAYER_LISTS
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm_lm, transformer, vlm
 from repro_torch.quant import api as quant_api
 from repro_torch.quant.backends import BACKENDS
 from repro_torch.quant.plan import QuantCtx, QuantPlan, compile_policy
@@ -68,37 +75,67 @@ def make_ctx(cfg: ArchConfig) -> QuantCtx:
 
 def insert_prefix(cache, prefix, slot: int):
     """Copy a B=1 ``prefix`` cache into batch row ``slot`` of ``cache``, in
-    place (every leaf is stacked (layers, B, ...), so the batch axis is 1)."""
+    place, through nested dicts (every leaf is stacked (layers, B, ...), so
+    the batch axis is 1)."""
     for name, leaf in cache.items():
-        leaf[:, int(slot)] = prefix[name][:, 0]
+        if isinstance(leaf, dict):
+            insert_prefix(leaf, prefix[name], slot)
+        else:
+            leaf[:, int(slot)] = prefix[name][:, 0]
     return cache
+
+
+# family -> the init of its parameter tree, (generator, cfg, device, leaf) -> params
+_INIT = {"dense": transformer.init_lm, "moe": transformer.init_lm, "vlm": transformer.init_lm,
+         "ssm": ssm_lm.init_ssm_lm, "hybrid": hybrid.init_hybrid}
 
 
 def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None) -> ModelApi:
     dev = resolve_device(device)
     ctx = ctx or make_ctx(cfg)
-    if cfg.family not in ("dense", "moe") or cfg.mrope:
+    fam = cfg.family
+    if fam not in _INIT:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE decoder families are ported (global and sliding-window "
-            f"attention, qkv biases, top-k experts); the VLM comes next (ROADMAP Queue A7.3), then the SSM, "
-            f"hybrid and enc-dec families (A7)")
+            f"{cfg.name}: the {fam} family is not ported yet (ROADMAP Queue A7.5: the enc-dec family); ported: "
+            f"{sorted(_INIT)}")
+    init = lambda gen: _INIT[fam](gen, cfg, dev)  # noqa: E731
+    if fam in ("ssm", "hybrid"):
+        mod = ssm_lm if fam == "ssm" else hybrid
+        return ModelApi(
+            cfg, ctx, dev, init=init,
+            forward=lambda p, b: mod.forward(p, b["tokens"], cfg, ctx),
+            init_cache=lambda b, m: mod.init_cache(cfg, b, m, device=dev),
+            decode=lambda p, t, pos, c: mod.decode_step(p, t, pos, cfg, ctx, c),
+            insert=insert_prefix,  # SSM states and per-superblock KV: all (layers, B, ...)
+        )
+    if fam == "vlm":
+        forward = lambda p, b: vlm.forward(p, b, cfg, ctx)  # noqa: E731
+        prefill = lambda p, b, c: vlm.prefill(p, b, cfg, ctx, c)  # noqa: E731
+    else:
+        forward = lambda p, b: transformer.forward(p, b["tokens"], cfg, ctx)  # noqa: E731
+        prefill = lambda p, b, c: transformer.prefill(p, b["tokens"], cfg, ctx, c)  # noqa: E731
     return ModelApi(
-        cfg, ctx, dev,
-        init=lambda gen: transformer.init_lm(gen, cfg, dev),
-        forward=lambda p, b: transformer.forward(p, b["tokens"], cfg, ctx),
+        cfg, ctx, dev, init=init, forward=forward,
         init_cache=lambda b, m: transformer.init_cache(cfg, b, m, device=dev),
         decode=lambda p, t, pos, c: transformer.decode_step(p, t, pos, cfg, ctx, c),
-        prefill=lambda p, b, c: transformer.prefill(p, b["tokens"], cfg, ctx, c),
+        prefill=prefill,
         prefill_chunk=lambda p, t, start, c: transformer.prefill_chunk(p, t, start, cfg, ctx, c),
         insert=insert_prefix,
     )
 
 
 def make_smoke_batch(gen: torch.Generator, cfg: ArchConfig, batch: int, seq: int) -> Dict[str, torch.Tensor]:
-    """A seeded (batch, seq) token batch on ``gen``'s device (the reference
-    draws its own with ``jax.random``; labels come with training)."""
-    return {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=gen.device,
-                                    dtype=torch.int32)}
+    """A seeded (batch, seq) token batch on ``gen``'s device; a VLM's also
+    carries ``vision_embeds`` (batch, n_frontend_tokens, d_model) and their
+    (3, batch, n_vis + seq) M-RoPE ``positions`` (the reference draws its
+    own with ``jax.random``; labels come with training)."""
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=gen.device, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        nv = cfg.n_frontend_tokens
+        out["vision_embeds"] = (torch.randn((batch, nv, cfg.d_model), generator=gen, device=gen.device) * 0.1
+                                ).to(getattr(torch, cfg.dtype))
+        out["positions"] = vlm.build_mrope_positions(batch, nv, seq, device=gen.device)
+    return out
 
 
 def quantize_and_plan(api: ModelApi, params, calib_batches=None) -> Tuple[Any, QuantPlan, ModelApi]:
@@ -122,7 +159,7 @@ def init_quantized(api: ModelApi, gen: torch.Generator) -> Tuple[Any, QuantPlan,
     if policy is None:
         raise ValueError("init_quantized needs a PTQ config (cfg.quant.mode='ptq')")
     rules = QuantPlan(policy=policy)  # resolves every path by the policy's rules
-    params = transformer.init_lm(
+    params = _INIT[api.cfg.family](
         gen, api.cfg, api.device,
         leaf=lambda path, key, val: quant_api.quantize_leaf(path, key, val, rules),
     )
@@ -142,7 +179,7 @@ def load_servable(artifact_dir: str, mesh=None, *, device=None,
     """Cold-start from a packed artifact: (api, qparams, artifact) on
     ``device`` (the card unless ``"cpu"``).  The model is rebuilt from the
     artifact's own ArchConfig and bound to its plan (calibrated exponents
-    included); stacked blocks split into the port's per-layer list.  The
+    included); stacked layers split into the port's per-layer lists.  The
     plan's backend must be one of the port's, or ``backend`` replaces it
     (an artifact of the reference's launcher names ``xla``)."""
     dev = resolve_device(device)
@@ -151,9 +188,7 @@ def load_servable(artifact_dir: str, mesh=None, *, device=None,
     if cfg_dict is None:
         raise ValueError(f"artifact at {artifact_dir!r} carries no 'arch_config' metadata; save it with "
                          "repro_torch.models.save_servable")
-    params = dict(art.params)
-    if "blocks" in params:
-        params["blocks"] = ckpt.unstack(params["blocks"])
+    params = {k: ckpt.unstack(v) if k in LAYER_LISTS else v for k, v in art.params.items()}
     api = build_model(config_from_dict(cfg_dict), device=dev)
     plan = art.plan
     if plan is not None:

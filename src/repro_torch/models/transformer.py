@@ -1,6 +1,8 @@
-"""Decoder-only LM, dense and MoE families (counterpart of
-``repro/models/transformer.py``; M-RoPE comes with the VLM family).  A
-block's MLP is ``models/moe.py``'s layer where the config has experts.
+"""Decoder-only LM of the dense, MoE and VLM families (counterpart of
+``repro/models/transformer.py``).  A block's MLP is ``models/moe.py``'s
+layer where the config has experts; under ``cfg.mrope`` (qwen2-vl)
+positions are (3, B, S) and ``extra_embeds`` (patch embeddings) are
+prepended after the token embedding (``models/vlm.py``).
 
 The reference stacks layers on a leading axis and scans; the port keeps
 ``params["blocks"]`` as a list of per-layer dicts and loops in Python.  The
@@ -77,9 +79,17 @@ def _block_apply(bp, x, positions, cfg, ctx: QuantCtx, window=None, cache=None, 
     return x + layers.mlp(bp["mlp"], h, "blocks/mlp", ctx), cache
 
 
-def hidden(params, tokens: torch.Tensor, cfg, ctx: QuantCtx,
-           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _embed(params, tokens, extra_embeds=None) -> torch.Tensor:
+    """Token embeddings, with ``extra_embeds`` (B, n_vis, d) prepended."""
     x = layers.embed(params["embed"], tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def hidden(params, tokens: torch.Tensor, cfg, ctx: QuantCtx, positions: Optional[torch.Tensor] = None,
+           extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = _embed(params, tokens, extra_embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     win = window_schedule(cfg, x.shape[1])
@@ -88,8 +98,8 @@ def hidden(params, tokens: torch.Tensor, cfg, ctx: QuantCtx,
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def forward(params, tokens, cfg, ctx: QuantCtx, positions=None):
-    x = hidden(params, tokens, cfg, ctx, positions)
+def forward(params, tokens, cfg, ctx: QuantCtx, positions=None, extra_embeds=None):
+    x = hidden(params, tokens, cfg, ctx, positions, extra_embeds)
     return layers.dense(params["lm_head"], x, "lm_head", ctx)
 
 
@@ -108,10 +118,13 @@ def _cache_layers(params, x, positions, cfg, ctx, cache, cache_index, attend_cac
     return x
 
 
-def prefill(params, tokens: torch.Tensor, cfg, ctx: QuantCtx, cache):
-    """Fill the cache with S tokens at [0, S); returns (last-token logits, cache)."""
-    x = layers.embed(params["embed"], tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+def prefill(params, tokens: torch.Tensor, cfg, ctx: QuantCtx, cache, extra_embeds=None, positions=None):
+    """Fill the cache with S tokens (after ``extra_embeds``, if any) at [0,
+    S) under ``positions`` (default: 0..S-1); returns (last-token logits,
+    cache)."""
+    x = _embed(params, tokens, extra_embeds)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
     x = _cache_layers(params, x, positions, cfg, ctx, cache, 0)
     x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return layers.dense(params["lm_head"], x, "lm_head", ctx), cache
@@ -125,6 +138,8 @@ def prefill_chunk(params, tokens: torch.Tensor, start: int, cfg, ctx: QuantCtx, 
     start = int(start)
     x = layers.embed(params["embed"], tokens)
     positions = start + torch.arange(x.shape[1], device=x.device)
+    if cfg.mrope:  # a text-only serving prompt: all three components temporal
+        positions = positions.expand(3, tokens.shape[0], x.shape[1])
     x = _cache_layers(params, x, positions, cfg, ctx, cache, start, attend_cache=True)
     x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return layers.dense(params["lm_head"], x, "lm_head", ctx), cache
@@ -137,6 +152,8 @@ def decode_step(params, token: torch.Tensor, pos, cfg, ctx: QuantCtx, cache):
         positions = pos[:, None].to(torch.int32)
     else:
         positions = torch.full((token.shape[0], 1), int(pos), dtype=torch.int32, device=x.device)
+    if cfg.mrope:
+        positions = positions.expand(3, *positions.shape)
     x = _cache_layers(params, x, positions, cfg, ctx, cache, pos)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.dense(params["lm_head"], x, "lm_head", ctx), cache

@@ -11,7 +11,10 @@ tested against.
 ``StagedEngine`` splits serving into three stages:
 
   * ``prefill``  -- ``prefill_chunk`` consumes a prompt chunk (B=1) against
-    a private cache, chunked at a token budget (``SchedulerConfig``);
+    a private cache, chunked at a token budget (``SchedulerConfig``); a
+    family without one (SSM, hybrid: a recurrent state has no chunk graph)
+    consumes the chunk a token at a time through ``decode`` into the same
+    private cache, as the reference's fallback does;
   * ``insert``   -- the finished prefix is copied into the decode cache's
     reserved slot (every leaf's row is overwritten);
   * ``generate`` -- one decode call over the slot batch; the reserved slot
@@ -104,6 +107,11 @@ class Request:
     @property
     def terminal(self) -> bool:
         return self.status in TERMINAL_STATUSES
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a (nested) cache dict."""
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 class _EngineBase:
@@ -429,13 +437,14 @@ class _EngineBase:
         return _NO_FAULT
 
     def _corrupt_slot_cache(self, s: int) -> None:
-        """Chaos: NaN-fill every float leaf of slot ``s``'s cache rows
-        through the same ``insert`` that clears slots (a cache without float
-        leaves, kv_int8, gets a fresh row, as in the reference)."""
+        """Chaos: NaN-fill every float leaf of slot ``s``'s cache rows (SSM
+        states included) through the same ``insert`` that clears slots (a
+        cache without float leaves, kv_int8, gets a fresh row, as in the
+        reference)."""
         if self._poison_prefix is None:
-            fresh = self.api.init_cache(1, self.max_len)
-            self._poison_prefix = {name: torch.full_like(leaf, float("nan")) if leaf.is_floating_point() else leaf
-                                   for name, leaf in fresh.items()}
+            self._poison_prefix = _tree_map(
+                lambda leaf: torch.full_like(leaf, float("nan")) if leaf.is_floating_point() else leaf,
+                self.api.init_cache(1, self.max_len))
         self.api.insert(self.cache, self._poison_prefix, s)
 
     # -- device ------------------------------------------------------------
@@ -521,8 +530,8 @@ class StagedEngine(_EngineBase):
 
     def __init__(self, api, params: Any, *, sched: SchedulerConfig = SchedulerConfig(), **kwargs):
         super().__init__(api, params, **kwargs)
-        if api.prefill_chunk is None or api.insert is None:
-            raise ValueError(f"model family {api.cfg.family!r} has no prefill_chunk/insert")
+        if api.insert is None:
+            raise ValueError(f"model family {api.cfg.family!r} has no per-slot cache insertion (ModelApi.insert)")
         if sched.prefill_chunk >= self.max_len:
             sched = dataclasses.replace(sched, prefill_chunk=self.max_len - 1)
         self.sched = sched
@@ -587,7 +596,11 @@ class StagedEngine(_EngineBase):
         req = pf.req
         toks = torch.as_tensor([req.prompt[start:start + size]], dtype=torch.int32, device=self.device)
         with torch.inference_mode():
-            logits, pf.cache = self.api.prefill_chunk(self.params, toks, start, pf.cache)
+            if self.api.prefill_chunk is not None:
+                logits, pf.cache = self.api.prefill_chunk(self.params, toks, start, pf.cache)
+            else:  # budgeted per-token decode into the private B=1 cache
+                for j in range(size):
+                    logits, pf.cache = self.api.decode(self.params, toks[:, j:j + 1], start + j, pf.cache)
             pf.advance(size)
             self.counts["prefill_chunks"] += 1
             if not pf.complete:

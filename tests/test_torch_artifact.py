@@ -3,8 +3,11 @@ the reference writes, the port reads bit for bit in every weight format and
 in bfloat16; the port writes the reference's files byte for byte and the
 reference serves them; the port's cold start serves what it quantized; the
 MoE family's (grok-1-314b smoke) stacked expert sites both ways, its
-reference artifact cold-started by both engines; the tamper, corruption and
-IO-flake cases fall back or fail closed as the reference's tests require."""
+reference artifact cold-started by both engines; the VLM, SSM and hybrid
+families' artifacts both ways (the hybrid's ``mamba_stack``, ``tail_stack``
+and ``shared`` stacks) and their decode caches, nested SSM states
+included; the tamper, corruption and IO-flake cases fall back or fail
+closed as the reference's tests require."""
 import dataclasses
 import hashlib
 import json
@@ -31,7 +34,7 @@ from repro.serving import StagedEngine as JStagedEngine
 from repro_torch import configs as tconfigs
 from repro_torch.configs.base import QuantConfig as TQuantConfig
 from repro_torch.configs.base import config_from_dict
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import cache_from_jax, params_from_jax
 from repro_torch.core.quantizer import QTensor
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import load_servable, make_smoke_batch, quantize_and_plan, save_servable
@@ -272,6 +275,43 @@ def test_moe_reference_artifact_cold_starts_both_engines(moe_model, engine, jeng
     api = tbuild(config_from_dict(jconfig_to_dict(cfg)), device="cpu").with_plan(QuantPlan.from_json(plan.to_json()))
     warm = tokens(engine(api, params_from_jax(qparams, device="cpu"), n_slots=2, max_len=16))
     assert cold == warm == tokens(jengine(qapi, qparams, n_slots=2, max_len=16)) and len(cold) == 2
+
+
+# ---------------------------------------------------------------------------
+# The VLM, SSM and hybrid families: their trees and caches both ways.
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", params=["qwen2-vl-72b", "falcon-mamba-7b", "zamba2-7b"])
+def family_model(request):
+    """(cfg, qparams, plan, plan-bound api) of the reference's ternary smoke model."""
+    cfg = jconfigs.get_smoke(request.param, JQuantConfig(**_quant("ternary")))
+    api = jbuild(cfg)
+    qparams, plan, qapi = jquantize_and_plan(api, api.init(jax.random.PRNGKey(0)))
+    return cfg, qparams, plan, qapi
+
+
+def test_family_artifacts_both_ways(family_model, tmp_path):
+    """The reference's artifact read by the port bit for bit, stacked
+    layers split into lists of the reference's lengths; the port's artifact
+    of the same tree is the reference's files byte for byte; and the
+    reference's decode cache converts to the port's leaf for leaf."""
+    cfg, qparams, plan, qapi = family_model
+    jsave_servable(str(tmp_path / "jax"), qapi, qparams, plan)
+    api, loaded, art = load_servable(str(tmp_path / "jax"), device="cpu")
+    _assert_bit_exact(loaded, params_from_jax(qparams, device="cpu"))
+    assert art.plan.to_json() == plan.to_json() and tconfigs.config_to_dict(api.cfg) == jconfig_to_dict(cfg)
+    stacks = {k: len(v) for k, v in loaded.items() if isinstance(v, list)}
+    want = {"ssm": {"blocks": 2}, "vlm": {"blocks": 2},
+            "hybrid": {"mamba_stack": 6, "shared": 2, "tail_stack": 1}}[cfg.family]
+    assert stacks == want
+    save_servable(str(tmp_path / "port"), api, loaded, QuantPlan.from_json(plan.to_json()))
+    assert _files(tmp_path / "port" / STEP0) == _files(tmp_path / "jax" / STEP0)
+
+    jcache = qapi.init_cache(2, 16)
+    tcache = cache_from_jax(jax.tree.map(np.asarray, jcache), device="cpu")
+    fresh = api.init_cache(2, 16)
+    assert list(_flat(tcache)) and [p for p, _ in _flat(tcache)] == [p for p, _ in _flat(fresh)]
+    for (path, got), (_, want_leaf) in zip(_flat(tcache), _flat(fresh)):
+        assert got.dtype == want_leaf.dtype and got.shape == want_leaf.shape and torch.equal(got, want_leaf), path
 
 
 # ---------------------------------------------------------------------------

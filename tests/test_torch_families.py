@@ -9,7 +9,8 @@ plain version and flash decode against the reference's), the StagedEngine's
 greedy tokens against the reference's with flash off and on, the lockstep
 engine's against the reference's, and the reference's packed artifact read
 by the port bit for bit at 2, 4 and 8 bits.  ``build_model`` builds the
-MoE family and still refuses the others, naming the next step.  Token
+MoE, VLM, SSM and hybrid families and refuses the enc-dec one, naming the
+step that ports it.  Token
 gates pair like with like: flash with flash, oracle with oracle.
 """
 import dataclasses
@@ -178,11 +179,11 @@ def test_reference_artifact_loads_bit_exact(arch, bits, tmp_path):
     assert tconfigs.config_to_dict(api.cfg) == jconfig_to_dict(jcfg)
 
 
-@pytest.mark.parametrize("arch,step", [("grok-1-314b", None), ("arctic-480b", None), ("qwen2-vl-72b", "A7.3"),
-                                       ("zamba2-7b", "A7"), ("falcon-mamba-7b", "A7"), ("whisper-base", "A7")])
+@pytest.mark.parametrize("arch,step", [("grok-1-314b", None), ("arctic-480b", None), ("qwen2-vl-72b", None),
+                                       ("zamba2-7b", None), ("falcon-mamba-7b", None), ("whisper-base", "A7.5")])
 def test_build_model_refuses_other_families(arch, step):
-    """The MoE family builds (``step`` None); the others are refused,
-    naming the step that ports them."""
+    """The MoE, VLM, hybrid and SSM families build (``step`` None); the
+    enc-dec family is refused, naming the step that ports it."""
     cfg = tconfigs.config_from_dict(jconfig_to_dict(jconfigs.get_smoke(arch)))
     if step is None:
         assert tbuild(cfg, device="cpu").cfg == cfg

@@ -880,3 +880,62 @@ def test_quantize_rows_one_read_bit_exact(dev, dtype, m, d):
     wq, we = quantize_rows_plain(x)
     torch.cuda.synchronize()
     assert torch.equal(q, wq) and torch.equal(e, we)
+
+
+# ---------------------------------------------------------------------------
+# The VLM, SSM and hybrid families: flash_attend at head_dim 112 (zamba2's
+# shared attention, G = 1) and at G = 8 (qwen2-vl's 64 over 8 kv heads);
+# the new qdense shapes (qwen2-vl's K / N 29568, falcon-mamba's x_proj N 288
+# and dt_proj K 256 with a bias, zamba2's bc_proj N 128).
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("fmt", ["kv_bf16", "kv_int8", "kv_mx"])
+@pytest.mark.parametrize("s", [1, 31, 256])
+def test_flash_hd_112_matches_plain(dev, fmt, s):
+    """zamba2's head_dim, one query head a kv head, global and a 300-token
+    window, decode and chunks."""
+    gen = torch.Generator(device=dev).manual_seed(112 + s)
+    b, t, kh, g, hd = 2, 1024, 4, 1, 112
+    c = _packed_cache(fmt, b, t, kh, hd, gen, dev)
+    q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev)
+    start = torch.tensor([[0], [t - s - 37]], dtype=torch.int32, device=dev)
+    for window in (2**30, 300):
+        win = torch.tensor([[window]], dtype=torch.int32, device=dev)
+        args = (q, c["k"], c["v"], c.get("ke"), c.get("ve"), start, start + s, win)
+        got = flash_attend(*args, fmt=fmt)
+        want = flash_attend_ref(*args, fmt=fmt)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fmt", ["kv_bf16", "kv_int8", "kv_mx"])
+def test_flash_decode_g8_matches_plain(dev, fmt):
+    """qwen2-vl's grouping: 8 query heads a kv head (the decode kernel's
+    whole row group in registers) at hd 128, ragged fill levels."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, t, kh, g, hd = 4, 1024, 2, 8, 128
+    c = _packed_cache(fmt, b, t, kh, hd, gen, dev)
+    q = torch.randn((b, 1, kh, g, hd), generator=gen, device=dev)
+    valid = torch.tensor([[1], [300], [777], [1024]], dtype=torch.int32, device=dev)
+    win = torch.tensor([[2**30]], dtype=torch.int32, device=dev)
+    args = (q, c["k"], c["v"], c.get("ke"), c.get("ve"), valid - 1, valid, win)
+    got = flash_attend(*args, fmt=fmt)
+    want = flash_attend_ref(*args, fmt=fmt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("m", [1, 4, 17])
+@pytest.mark.parametrize("k,n,bias", [(29568, 1024, False), (1024, 29568, False), (8192, 288, False),
+                                      (256, 8192, True), (3584, 128, False)])
+def test_qdense_new_family_shapes_bit_exact(dev, m, k, n, bias):
+    """Fused ternary at the new families' shapes (N of qwen2-vl's gate cut
+    to 1024 columns where K is whole), with a bias where the site has one:
+    0 ulps from the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * k**-0.5, 2, 64)
+    x = (torch.randn((m, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    b = (torch.randn((n,), generator=gen, device=dev) * 0.1).to(torch.bfloat16) if bias else None
+    got = ternary_matmul_fused(x, qt.packed, qt.scale_m, qt.scale_e, group=64, bias=b)
+    want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode="ternary", group=64, bias=b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -213,3 +213,16 @@ def test_flash_hd_240_fits(fmt):
         assert plan["smem"] <= plan["smem_cap"]
     assert fa_smem_bytes(torch.bfloat16, 240) == 222_208
     assert fa_smem_bytes(torch.float32, 240) == 204_288
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_flash_hd_112_fits(fmt):
+    """head_dim 112 (zamba2) is an instance of flash_attend: its prefill
+    block (two an SM), decode block and zamba2's launches fit."""
+    assert 112 in HEAD_DIMS
+    want = {"kv_bf16": 107_520, "kv_int8": 105_728, "kv_mx": 91_392}[fmt]
+    assert prefill_smem_bytes(fmt, 112) == want and 2 * want <= _MAX_SMEM
+    assert decode_smem_bytes(112, 512) == 30_784 <= 48 * 1024
+    for b, s, t in ((4, 1, 1024), (1, 128, 1024), (1, 1, 64)):
+        plan = launch_plan(fmt, b, s, t, 32, 1, 112)
+        assert plan["smem"] <= plan["smem_cap"]
