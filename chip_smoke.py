@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port (src/repro_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py    # every phase, the kernels and device lines
 
 Phases, in order; any failure exits non-zero:
 
@@ -181,7 +181,40 @@ Phases, in order; any failure exits non-zero:
                  float32 (flash decode at hd 112 against the dense oracle),
                  5e-3 and equal argmax.  Load s, packed and peak GB, tokens/s
                  and launches are logged (flash hd 112 > 0)
- 12. timings  -- kernel, plain version, library call (a yardstick the port
+ 12. encdec   -- the enc-dec family at its published widths: whisper-base, all
+                 6 + 6 layers (d_model 512, 8 heads of 64, d_ff 2048, vocab
+                 51865 padded to 51968, 1500 audio frames), ternary group 64,
+                 kv_int8, both flash flags, random seeded weights quantized on
+                 the card one site at a time: parity first -- fused_qmm at
+                 wq (K 512, one k-tile), up (N 2048, bias) and down (K 2048,
+                 bias) at M = 1, 4, 8, 17, 256, 1500, 6000 and the int8
+                 lm_head (N 51968) at M <= 256, 0 ulps; flash_attend at
+                 head_dim 64, G = 1, in all three formats (decode at T 448
+                 with ragged fills, a 64-token chunk, ragged chunks, global
+                 and a 100-token window, the prefill's in-chunk tail), 5e-5
+                 -- then the audio path through the model API (encode s;
+                 api.prefill of 4 x 1500 seeded frame embeddings and
+                 4-token prompts; 64 greedy decode steps at max_len 448, ms
+                 a step), one decode step's launches by route (GEMV, tile
+                 and flash at hd 64 each > 0) and 4 steps under
+                 torch.profiler (device busy share), both engines on the
+                 launcher's traffic against zero frames (ROADMAP Queue C14;
+                 token differences logged, not gated), and the 2 + 2-layer
+                 float32 twin (flash decode vs the dense oracle, 5e-3,
+                 equal argmax)
+ 13. qat      -- quantization-aware training's forward and backward on the
+                 card (plain torch, as the reference's QAT path reaches no
+                 Pallas kernel): train_loss and backward() with float32
+                 master weights, ternary group 64 under the paper's
+                 policy, a 2 x 256 batch, on whisper-base at full depth
+                 (seeded frames) and qwen3-8b at its published widths cut to
+                 4 of 36 layers (float32 weights and gradients at 36 layers
+                 are ~64 GB); the loss finite, every master weight's
+                 gradient equal bit for bit to the gradient at its
+                 fake-quantized weight; one full-width site's fake-quantized
+                 weight on the card against the CPU's (differing values
+                 counted); s and peak GB
+ 14. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
                  (flash: at the bf16 tensor-core peak, the float32 one
                  logged beside it); qdense per site and per layer at M = 4
@@ -199,7 +232,10 @@ Phases, in order; any failure exits non-zero:
                  int8 router site at N 8, M = 4; the vlm_ssm phase's shapes:
                  flash_attend kv_int8 at hd 112 (decode, B 4, T 1024, 32 x 32
                  heads), qwen2-vl's down projection (K 29568), falcon-mamba's
-                 x_proj and dt_proj (torch.addmm with the bias), M = 4
+                 x_proj and dt_proj (torch.addmm with the bias), M = 4;
+                 the encdec phase's shapes: wq (K 512) at M = 4, 1500 and
+                 6000, the int8 lm_head at N 51968, M = 4, flash_attend
+                 kv_int8 at hd 64 (decode, B 4, T 448)
 
 The traced ticks and chunks log device busy time, kernels per call and the
 qdense GEMV's device time and launches per tick.
@@ -2715,7 +2751,367 @@ def phase_vlm_ssm(dev, errs) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# 12. timings
+# 12. encdec
+# ---------------------------------------------------------------------------
+WHISPER = "whisper-base"
+WHISPER_SITES = [  # (name, K, N, decode, bias, M rows) at whisper-base's widths
+    ("wq", 512, 512, "ternary", False, (1, 4, 8, 17, 256, 1500, 6000)),  # K 512: exactly one k-tile
+    ("up", 512, 2048, "ternary", True, (1, 4, 8, 17, 256, 1500, 6000)),
+    ("down", 2048, 512, "ternary", True, (1, 4, 8, 17, 256, 1500, 6000)),
+    ("lm_head", 512, 51968, "int8", False, (1, 4, 8, 17, 256)),  # the int8 head at the padded vocab
+]
+WHISPER_MAX_LEN = 448  # the decoder's position table; 14 kv_mx blocks
+WHISPER_SLOTS, WHISPER_PROMPT, WHISPER_STEPS = 4, 4, 64  # the audio path: 4 x 1500 frames, 4-token prompts
+HD64 = dict(b=4, t=WHISPER_MAX_LEN, kh=8, g=1, hd=64)  # whisper's self-attention: 8 heads over 8 kv heads
+HD64_DECODE_VALID = [1, 100, 300, 448]
+HD64_CHUNK = dict(s=64, start=128)
+HD64_RAGGED = dict(s=(31, 60), starts=(7, 300))
+HD64_TAIL = dict(b=WHISPER_SLOTS, t=WHISPER_PROMPT, kh=8, g=1, hd=64)  # prefill's in-chunk tail, S = T = 4
+ENCDEC_ROWS = {  # JSON row -> which planned launches of the phase's serving runs it counts
+    "fused_qmm_ternary_k512": lambda key: key[0] == "gemv" and key[2:] == (512, 512),
+    "fused_qmm_ternary_k512_m1500": lambda key: key == ("tile", 1500, 512, 512),
+    "fused_qmm_ternary_k512_m6000": lambda key: key == ("tile", 6000, 512, 512),
+    "fused_qmm_int8_n51968": lambda key: key == ("int8 loop", 512) or (key[0] == "gemv" and key[2:] == (512, 51968)),
+    "flash_attend_int8_hd64": lambda key: key == ("kv_int8/decode", 64),
+}
+ENCDEC_ERR_KEYS = {  # JSON row -> the parity case whose error it reports: (site, M)
+    "fused_qmm_ternary_k512": ("wq", 4), "fused_qmm_ternary_k512_m1500": ("wq", 1500),
+    "fused_qmm_ternary_k512_m6000": ("wq", 6000), "fused_qmm_int8_n51968": ("lm_head", 4),
+}
+
+
+def _encdec_launches() -> _KeyedLaunches:
+    """Launches keyed by route, M, K, N (qdense's GEMV and tile plans), by
+    route and K (the int8 loop) or by mode and head_dim (flash)."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import fused_qmm as fq
+
+    wraps = [(fq, name, lambda a, route=route: (route, a[0], a[1], a[2]))
+             for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"))]
+    wraps.append((fq, "rows_per_block", lambda a: ("int8 loop", a[1])))
+    wraps.append((fp, "launch_plan", lambda a: (f"{a[0]}/{'decode' if a[2] == 1 else 'prefill'}", a[6])))
+    return _KeyedLaunches(wraps)
+
+
+def _parity_encdec(dev, gen, errs) -> list:
+    """whisper's shapes against the plain versions: fused_qmm at WHISPER_SITES
+    (bf16 x, dynamic and static exponent, the biases), 0 ulps; flash_attend
+    at head_dim 64, G = 1, in every format -- decode at T 448 with ragged
+    fills, a 64-token chunk, ragged chunks, global and a 100-token window,
+    and the prefill's in-chunk tail -- 5e-5."""
+    from repro_torch.kernels.flash_prefill import flash_attend, flash_attend_ref
+    from repro_torch.kernels.fused_qmm import fused_qmm_ref
+
+    failures = []
+    for name, k, n, fmt, bias, rows in WHISPER_SITES:
+        qt = _qsite(k, n, fmt, gen, dev)
+        b = (torch.randn((n,), generator=gen, device=dev) * 0.1).to(torch.bfloat16) if bias else None
+        for i, m in enumerate(rows):
+            x = _rows(m, k, gen, dev, torch.bfloat16)
+            kw = dict(group=qt.group_size, bias=b, act_exponent=(None, -4)[i % 2])
+            got = _entry(fmt)(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
+            want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=fmt, **kw)
+            torch.cuda.synchronize()
+            err, ulps = float((got - want).abs().max()), _ulps(got, want)
+            for row, key in ENCDEC_ERR_KEYS.items():
+                if key == (name, m):
+                    errs[row] = err
+            ok = bool(torch.isfinite(got).all()) and ulps == 0
+            log(f"parity qdense whisper {name} K={k} N={n} {fmt} M={m} static_e={kw['act_exponent']} bias={bias}: "
+                f"max_abs_err={err:.3e} ulps={ulps} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"qdense {name} M={m}")
+            del x, got, want
+        del qt
+        torch.cuda.empty_cache()
+
+    fs = HD64
+    cases = [(f, fs, 1, [v - 1 for v in HD64_DECODE_VALID], HD64_DECODE_VALID) for f in SHORT]
+    cases += [(f, dict(fs, b=1), HD64_CHUNK["s"], [HD64_CHUNK["start"]], [HD64_CHUNK["start"] + HD64_CHUNK["s"]])
+              for f in SHORT]
+    cases += [(f, dict(fs, b=2), s, list(HD64_RAGGED["starts"]), [a + s for a in HD64_RAGGED["starts"]])
+              for f in SHORT for s in HD64_RAGGED["s"]]
+    cases.append(("kv_bf16", HD64_TAIL, HD64_TAIL["t"], [0] * HD64_TAIL["b"], [HD64_TAIL["t"]] * HD64_TAIL["b"]))
+    for fmt, shape, s, starts, valid in cases:
+        case = _flash_case(fmt, shape, gen, dev, s=s, starts=starts, valid=valid)
+        for window in (None, 100):
+            if window is not None:
+                case = case[:4] + (torch.tensor([[window]], dtype=torch.int32, device=dev),)
+            args = _flash_args(case)
+            got = flash_attend(*args, fmt=fmt)
+            want = flash_attend_ref(*args, fmt=fmt)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if fmt == "kv_int8" and s == 1:
+                errs["flash_attend_int8_hd64"] = max(errs.get("flash_attend_int8_hd64", 0.0), err)
+            ok = bool(torch.isfinite(got).all()) and err <= 5e-5
+            log(f"parity flash {fmt} hd=64 G=1 Kh={shape['kh']} B={len(starts)} S={s} T={shape['t']} start={starts} "
+                f"valid={valid} window={window}: max_abs_err={err:.3e} (atol 5e-5) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash {fmt} hd 64 S={s} window={window}")
+    return failures
+
+
+def _audio_batch(cfg, dev, b=WHISPER_SLOTS):
+    """b requests' seeded frame embeddings (bf16, as a frontend would hand
+    them over) and WHISPER_PROMPT-token decoder prompts."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    return {"frames": (torch.randn((b, cfg.n_audio_frames, cfg.d_model), generator=gen, device=dev) * 0.1).to(
+                getattr(torch, cfg.dtype)),
+            "tokens": torch.randint(0, cfg.vocab, (b, WHISPER_PROMPT), generator=gen, device=dev, dtype=torch.int32)}
+
+
+def _audio_logits(api, params, batch, steps, max_len=WHISPER_MAX_LEN):
+    """(prefill s, decode seconds, (1 + steps, B, vocab) float32 logits) of
+    ``api.prefill`` over the frames and prompt, then greedy ``decode_step``s."""
+    cache = api.init_cache(batch["tokens"].shape[0], max_len)
+    out = []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pos = batch["tokens"].shape[1]
+        for i in range(steps + 1):
+            out.append(logits[:, -1].float())
+            if i == steps:
+                break
+            logits, cache = api.decode(params, logits[:, -1:].argmax(-1).to(torch.int32), pos + i, cache)
+        torch.cuda.synchronize()
+    return t1 - t0, time.perf_counter() - t1, torch.stack(out)
+
+
+def _family_whisper(dev, totals, keyed) -> None:
+    """whisper-base, all 6 + 6 layers: the audio path through the model API
+    (encode s; prefill of 4 x 1500 frames + 4 tokens; WHISPER_STEPS greedy
+    steps), one decode step's launches by route, then both engines on the
+    launcher's text traffic (zero frames: ROADMAP Queue C14)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+
+    cfg = _ptq_cfg(arch=WHISPER, kv_fmt="kv_int8", flash_prefill=True)
+    booted = _boot_family(dev, cfg, WHISPER)
+    qparams, _, api = booted
+    batch = _audio_batch(cfg, dev)
+    with torch.inference_mode():
+        encdec.encode(qparams, batch["frames"], cfg, api.ctx)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encdec.encode(qparams, batch["frames"], cfg, api.ctx)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    _reset_counts()
+    prefill_s, decode_s, logits = _audio_logits(api, qparams, batch, WHISPER_STEPS)
+    launches = _read_counts()
+    _add(totals, launches)
+    ok = bool(torch.isfinite(logits).all()) and logits.shape == (WHISPER_STEPS + 1, WHISPER_SLOTS, cfg.padded_vocab)
+    log(f"{WHISPER} audio path: encode {WHISPER_SLOTS} x {cfg.n_audio_frames} frames {enc_s:.3f} s; api.prefill "
+        f"(encode + {WHISPER_PROMPT}-token prompt) {prefill_s:.3f} s; {WHISPER_STEPS} greedy decode steps over kv_int8 "
+        f"{decode_s / WHISPER_STEPS * 1e3:.2f} ms a step; finite {ok}; tokens of slot 0 "
+        f"{logits[:, 0].argmax(-1).tolist()[:16]}...; launches {({k: n for k, n in launches.items() if n})}")
+    _require_launches(launches, ["fused_qmm_ternary", "fused_qmm_ternary_prefill", "fused_qmm_int8",
+                                 "flash_attend_bf16_prefill", "flash_attend_int8"], f"{WHISPER} audio path")
+    if not ok:
+        raise SystemExit(f"{WHISPER}: the audio path's logits are not finite or not of their shape")
+    # one decode step's planned launches, by route
+    cache = api.init_cache(WHISPER_SLOTS, WHISPER_MAX_LEN)
+    with torch.inference_mode():
+        _, cache = api.prefill(qparams, batch, cache)
+        before = dict(keyed.counts)
+        api.decode(qparams, batch["tokens"][:, :1], WHISPER_PROMPT, cache)
+        torch.cuda.synchronize()
+    step = {k: n - before.get(k, 0) for k, n in keyed.counts.items() if n - before.get(k, 0)}
+    by_route = {r: sum(n for k, n in step.items() if k[0].startswith(r)) for r in ("gemv", "tile", "int8 loop")}
+    by_route["flash hd 64"] = step.get(("kv_int8/decode", 64), 0)
+    log(f"{WHISPER} one decode step (B {WHISPER_SLOTS}): launches {by_route}; by shape {step}")
+    if min(by_route["gemv"], by_route["tile"], by_route["flash hd 64"]) <= 0:
+        raise SystemExit(f"{WHISPER}: a decode step must launch the GEMV, the tile and flash at hd 64: {by_route}")
+    with torch.inference_mode():  # where a step's time goes: device busy share and kernels
+        _profile(lambda: api.decode(qparams, batch["tokens"][:, :1], WHISPER_PROMPT, cache), 4,
+                 f"{WHISPER} decode step trace (B {WHISPER_SLOTS})", "step")
+    del cache
+    prompts = serve.draw_prompts(8, cfg.vocab)
+    outs = {}
+    for kind in ("staged", "lockstep"):
+        outs[kind], launches = _run_engine(kind, booted, prompts, max_len=WHISPER_MAX_LEN, new=serve.NEW_TOKENS,
+                                           label=f"{WHISPER} (zero frames: C14)",
+                                           required=["fused_qmm_ternary", "fused_qmm_int8", "flash_attend_int8"])
+        _add(totals, launches)
+    _compare_engines(WHISPER, outs)
+    del booted, qparams, api
+    _free()
+
+
+def _whisper_twin(dev) -> None:
+    """The 2 + 2-layer full-width float32 twin of the audio path: flash
+    decode (hd 64, over kv_int8) against the dense oracle after the same
+    oracle prefill, 5e-3 and equal argmax (the in-chunk flash tail takes a
+    bf16 model's K / V; its shape is held in the parity cases)."""
+    from repro_torch.models import build_model
+
+    fcfg = dataclasses.replace(_ptq_cfg(2, arch=WHISPER, kv_fmt="kv_int8", dtype="float32", n_enc_layers=2),
+                               quant=dataclasses.replace(_ptq_cfg().quant, mode="fp"))
+    fapi = build_model(fcfg, device=dev)
+    fparams = fapi.init(torch.Generator(device=dev).manual_seed(SEED))
+    oracle = build_model(dataclasses.replace(fcfg, flash_decode=False), device=dev)
+    batch = _audio_batch(fcfg, dev)
+    before = _entries()["flash"].launches
+    got = _audio_logits(fapi, fparams, batch, 8)[2]
+    launched = _entries()["flash"].launches - before
+    want = _audio_logits(oracle, fparams, batch, 8)[2]
+    diff, same = _twin_diff(got, want)
+    ok = diff <= 5e-3 and same and launched == 8 * fcfg.n_layers
+    log(f"twin fp32 {WHISPER} kv_int8 (2 + 2 layers, full width, {WHISPER_SLOTS} x {fcfg.n_audio_frames} frames, "
+        f"8 decode steps, {launched} flash decode launches): logits max|flash - oracle| = {diff:.3e} (atol 5e-3; "
+        f"logit scale {float(want.abs().max()):.3e}); argmax equal {same} {'OK' if ok else 'FAIL'}")
+    del fparams, fapi, oracle
+    _free()
+    if not ok:
+        raise SystemExit(f"twin {WHISPER}: the flash path disagrees with the oracle")
+
+
+def phase_encdec(dev, errs) -> tuple:
+    """Parity at whisper's shapes, whisper-base at its published widths, its
+    twin: (launches by JSON row, launches of the phase's own rows)."""
+    t0 = time.perf_counter()
+    failures = _parity_encdec(dev, torch.Generator(device=dev).manual_seed(SEED + 7), errs)
+    if failures:
+        raise SystemExit(f"encdec parity failed: {failures}")
+    keyed = _encdec_launches()
+    totals: dict = {}
+    try:
+        _family_whisper(dev, totals, keyed)
+    finally:
+        keyed.close()
+    own = {row: sum(n for key, n in keyed.counts.items() if pred(key)) for row, pred in ENCDEC_ROWS.items()}
+    log(f"encdec: serving runs {time.perf_counter() - t0:.1f} s; launches of the new rows {own}")
+    missing = [row for row, n in own.items() if n <= 0]
+    if missing:
+        raise SystemExit(f"encdec: the serving runs never launched {missing}")
+    _whisper_twin(dev)
+    log(f"encdec: phase {time.perf_counter() - t0:.1f} s")
+    return totals, own
+
+
+# ---------------------------------------------------------------------------
+# 13. qat
+# ---------------------------------------------------------------------------
+QAT_BATCH, QAT_SEQ = 2, 256
+QAT_QWEN_LAYERS = 4  # of 36: float32 master weights and their gradients at 36 layers are ~64 GB before activations
+QAT_CPU_SITE = ("blocks/attn/wq", 4096, 4096)  # the site whose fake-quantized weight is held against the CPU's
+
+
+class _SteRecorder:
+    """Inside ``with``, every ``weights_ste`` call keeps its master weight
+    and the gradient that reaches its fake-quantized output, so the
+    straight-through contract (the master's gradient IS that gradient) can
+    be checked after ``backward()``."""
+
+    def __enter__(self):
+        from repro_torch.core import ste
+
+        self.mod, self.fn, self.records = ste, ste.weights_ste, []
+
+        def recorded(w, *a, **kw):
+            out = self.fn(w, *a, **kw)
+            if out.requires_grad and out is not w:
+                rec = {"w": w}
+                out.register_hook(lambda g, rec=rec: rec.__setitem__("g", g.detach().clone()))
+                self.records.append(rec)
+            return out
+
+        ste.weights_ste = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.weights_ste = self.fn
+
+
+def _qat_run(dev, arch, n_layers=None) -> None:
+    """``train_loss`` and ``backward()`` of ``arch`` under QAT (ternary group
+    64, the paper's policy, float32 master weights) on a 2 x 256 batch:
+    the loss finite, every master weight's gradient equal bit for bit to
+    the gradient at its fake-quantized weight, the s and peak GB."""
+    from repro_torch.models import build_model, make_smoke_batch
+
+    cfg = _ptq_cfg(n_layers, arch=arch, dtype="float32", quant=dict(mode="qat"))
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    api = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    for leaf in _float_leaves(params):
+        leaf.requires_grad_(True)
+    batch = make_smoke_batch(torch.Generator(device=dev).manual_seed(SEED + 60), cfg, QAT_BATCH, QAT_SEQ)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    with _SteRecorder() as rec:
+        t0 = time.perf_counter()
+        loss = api.train_loss(params, batch)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        loss.backward()
+        torch.cuda.synchronize()
+        bwd_s = time.perf_counter() - t0 - fwd_s
+    mismatched = [i for i, r in enumerate(rec.records) if r["w"].grad is None or not torch.equal(r["w"].grad, r["g"])]
+    n_params = sum(leaf.numel() for leaf in _float_leaves(params))
+    ok = bool(torch.isfinite(loss)) and rec.records and not mismatched
+    layers = f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.family == "encdec" else f"{cfg.n_layers}"
+    log(f"qat {arch} ({layers} layers, full width, {n_params / 1e9:.3f} B float32 parameters, batch {QAT_BATCH} x "
+        f"{QAT_SEQ}): loss {float(loss):.4f}; init {init_s:.2f} s, train_loss {fwd_s:.2f} s, backward {bwd_s:.2f} s, "
+        f"peak {_peak_gb():.2f} GB; {len(rec.records)} weight STE sites, master gradient == gradient at the "
+        f"fake-quantized weight bit for bit at {len(rec.records) - len(mismatched)} {'OK' if ok else 'FAIL'}")
+    if arch == ARCH:
+        _qat_cpu_site(params)
+    del params, loss, api, rec
+    _free()
+    if not ok:
+        raise SystemExit(f"qat {arch}: the loss is not finite or the STE gradient differs at sites {mismatched}")
+
+
+def _float_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _float_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _float_leaves(v)
+    elif isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        yield tree
+
+
+def _qat_cpu_site(params) -> None:
+    """One full-width site's fake-quantized weight (Algorithm 1, group 64)
+    on the card against the same function on the CPU: the codes that
+    differ are counted and logged (ROADMAP Queue C7: the cumsum order)."""
+    from repro_torch.quant.formats import fake_quantize_weights
+
+    w = params["blocks"][0]["attn"]["wq"]["w"].detach()
+    t0 = time.perf_counter()
+    card = fake_quantize_weights(w, 2, GROUP).cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = fake_quantize_weights(w.cpu(), 2, GROUP)
+    cpu_s = time.perf_counter() - t0
+    differ = int((card != cpu).sum())
+    log(f"qat {QAT_CPU_SITE[0]} ({QAT_CPU_SITE[1]} x {QAT_CPU_SITE[2]}, ternary group {GROUP}): fake-quantized on the "
+        f"card ({card_s:.2f} s) vs the CPU ({cpu_s:.2f} s): {differ} of {cpu.numel()} values differ"
+        f"{'' if differ else ' (bit for bit)'}")
+
+
+def phase_qat(dev) -> None:
+    """QAT's forward and backward on the card: whisper-base at full depth
+    (seeded frames) and qwen3-8b at its published widths, cut to
+    QAT_QWEN_LAYERS layers."""
+    t0 = time.perf_counter()
+    _qat_run(dev, WHISPER)
+    _qat_run(dev, ARCH, QAT_QWEN_LAYERS)
+    log(f"qat: phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 14. timings
 
 # ---------------------------------------------------------------------------
 class _Timer:
@@ -2867,6 +3263,7 @@ def phase_timings(dev) -> dict:
     _time_families(timer, gen, dev, rows)
     _time_moe(timer, gen, dev, rows)
     _time_vlm_ssm(timer, gen, dev, rows)
+    _time_encdec(timer, gen, dev, rows)
     return rows
 
 
@@ -2962,6 +3359,30 @@ def _time_vlm_ssm(timer, gen, dev, rows) -> None:
             f"torch.{'addmm' if bias else 'matmul'} bf16 {r['library_ms']:.4f} ms")
         del qt
         torch.cuda.empty_cache()
+
+
+def _time_encdec(timer, gen, dev, rows) -> None:
+    """whisper-base's shapes: wq (K 512, one k-tile) at M = 4 (the GEMV) and
+    on the tile at M = 1500 (one slot's cross K / V) and 6000 (the encoder
+    of 4 x 1500 frames, a 4-slot step's cross K / V), the int8 lm_head at N
+    51968, M = 4, and flash_attend kv_int8 at hd 64 (the decode tick: B 4,
+    T 448, 8 heads over 8 kv heads)."""
+    from repro_torch.quant.formats import dequantize_weights
+
+    for row, (k, n, fmt, m) in (("fused_qmm_ternary_k512", (512, 512, "ternary", M_ROWS)),
+                                ("fused_qmm_ternary_k512_m1500", (512, 512, "ternary", 1500)),
+                                ("fused_qmm_ternary_k512_m6000", (512, 512, "ternary", 6000)),
+                                ("fused_qmm_int8_n51968", (512, 51968, "int8", M_ROWS))):
+        qt = _qsite(k, n, fmt, gen, dev)
+        rows[row] = r = _time_site(timer, qt, dequantize_weights(qt).to(torch.bfloat16), fmt, "fused", m, None, gen,
+                                   dev)
+        log(f"time {row} (K={k} N={n} {fmt} M={m}): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms (by "
+            f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, torch.matmul bf16 {r['library_ms']:.4f} ms")
+        del qt
+        torch.cuda.empty_cache()
+    case = _flash_case("kv_int8", HD64, gen, dev, s=1, starts=[v - 1 for v in HD64_DECODE_VALID],
+                       valid=HD64_DECODE_VALID)
+    rows["flash_attend_int8_hd64"] = _time_flash(timer, "kv_int8", HD64, case, "decode")
 
 
 def _time_split(timer, gen, dev) -> None:
@@ -3115,7 +3536,7 @@ KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it 
 
 def _kernel_line(errs, launches, rows) -> dict:
     out = []
-    for name in list(MODES) + list(FAMILY_ROWS) + list(MOE_ROWS) + list(VLM_SSM_ROWS):
+    for name in list(MODES) + list(FAMILY_ROWS) + list(MOE_ROWS) + list(VLM_SSM_ROWS) + list(ENCDEC_ROWS):
         source, replaces = next(v for prefix, v in KERNEL_SOURCES.items() if name.startswith(prefix))
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3143,11 +3564,13 @@ def main() -> None:
                         ("serve", phase_serve), ("artifact", phase_artifact)):
         for k, v in timed(name, phase, dev).items():
             launches[k] += v
-    for name, phase in (("families", phase_families), ("moe", phase_moe), ("vlm_ssm", phase_vlm_ssm)):
+    for name, phase in (("families", phase_families), ("moe", phase_moe), ("vlm_ssm", phase_vlm_ssm),
+                        ("encdec", phase_encdec)):
         totals, own = timed(name, phase, dev, errs)
         for k, v in totals.items():
             launches[k] += v
         launches.update(own)
+    timed("qat", phase_qat, dev)
     rows = timed("timings", phase_timings, dev)
     log(f"phase seconds {seconds}")
     line = _kernel_line(errs, launches, rows)
@@ -3165,7 +3588,8 @@ def main() -> None:
         f"weights), "
         f"the router site or a decode tick's capacity buffer, their launches those of their shape in the moe phase's "
         f"serving runs; the vlm_ssm rows (*_k29568, *_x_proj, *_dt_proj, *_hd112) are single sites or calls, their "
-        f"launches those of their shape in the vlm_ssm phase's serving runs")
+        f"launches those of their shape in the vlm_ssm phase's serving runs; the encdec rows (*_k512*, *_n51968, "
+        f"*_hd64) are single sites or calls, their launches those of their shape in the encdec phase's serving runs")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@ windows, head_dim 240); the MoE family: ``grok-1-314b`` (8 experts) and
 ``arctic-480b`` (128 experts beside a dense residual MLP); the VLM
 ``qwen2-vl-72b`` (M-RoPE, prepended patch embeddings); the SSM
 ``falcon-mamba-7b`` (Mamba1) and the hybrid ``zamba2-7b`` (Mamba2 with
-two shared attention blocks, head_dim 112).  The reference's
-encoder-decoder family comes with a later slice of the port.
+two shared attention blocks, head_dim 112); the encoder-decoder
+``whisper-base`` (a stub audio frontend: precomputed frame embeddings).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ _MODULES: Dict[str, str] = {
     "qwen2-vl-72b": "qwen2_vl_72b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "zamba2-7b": "zamba2_7b",
+    "whisper-base": "whisper_base",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

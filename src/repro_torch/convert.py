@@ -3,13 +3,14 @@
 ``cache_from_jax(tree)`` turns the reference's decode cache (a dict of
 stacked (L, B, ...) leaves: KV in bf16, int8 mantissas and exponents,
 uint8 nibble pairs; float32 SSM states, nested as ``{"ssm": {"h",
-"conv"}}``) into the port's, byte for byte.
+"conv"}}``; the enc-dec family's (B, T, d) ``enc_out``) into the port's,
+byte for byte.
 
 ``params_from_jax(tree)`` takes the reference's fp parameter tree or its
 PTQ tree (numpy arrays or anything ``numpy.asarray`` accepts), with layers
 stacked on a leading axis, and returns the port's tree: each of
 ``LAYER_LISTS`` (``blocks``; the hybrid's ``mamba_stack``, ``tail_stack``
-and ``shared``) as a list of per-layer dicts, QTensors rebuilt from ``packed`` / ``scale_m`` /
+and ``shared``; the enc-dec family's ``enc_blocks`` and ``dec_blocks``) as a list of per-layer dicts, QTensors rebuilt from ``packed`` / ``scale_m`` /
 ``scale_e`` (uint32 words viewed as int32 -- the same bytes).  MoE expert
 leaves keep their expert axis: an (L, E, ...) QTensor becomes one (E, ...)
 QTensor a layer, an (L, E, K, N) float leaf (E, K, N) ones.  The
@@ -27,7 +28,7 @@ from repro_torch.core.quantizer import QTensor
 from repro_torch.device import resolve_device
 
 # top-level keys whose subtree the reference stacks on a layer axis and the port keeps as a list
-LAYER_LISTS = ("blocks", "mamba_stack", "tail_stack", "shared")
+LAYER_LISTS = ("blocks", "mamba_stack", "tail_stack", "shared", "enc_blocks", "dec_blocks")
 
 
 def _is_qtensor(x) -> bool:

@@ -87,3 +87,9 @@ def quantize_tensor(
         max_abs = torch.amax(a, dim=axis, keepdim=True)
     e = choose_exponent(max_abs, bits)
     return quantize(x, e, bits), e
+
+
+def fake_quantize(x: torch.Tensor, bits: int, axis: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """quantize -> dequantize in one step (the QAT forward, error metrics)."""
+    q, e = quantize_tensor(x, bits, axis)
+    return dequantize(q, e)

@@ -32,8 +32,11 @@ def cluster_dots(xq: torch.Tensor, codes: torch.Tensor, group: int) -> torch.Ten
 
 def qmatmul_ref(x_q: torch.Tensor, x_e, qt: QTensor) -> torch.Tensor:
     """out[m, n] = sum_g scale_m[g, n] * dot_g[m, n] * 2**(scale_e + x_e[m])."""
-    from repro_torch.quant.formats import decode_codes  # lazy: import cycle
+    from repro_torch.quant.formats import decode_codes, format_of  # lazy: import cycle
 
+    f = format_of(qt)
+    if f.ref_matmul is not None:  # a scale table that is not one per cluster (ttq: Wp / Wn)
+        return f.ref_matmul(x_q, x_e, qt)
     m = x_q.shape[0]
     part = cluster_dots(x_q, decode_codes(qt), qt.group_size)  # (G, M, N)
     out = (part * qt.scale_m.to(torch.float32)[:, None, :]).sum(dim=0)

@@ -1,8 +1,8 @@
-"""Grouped-query attention with qk-norm, RoPE or M-RoPE (qwen2-vl) and
-KV-cache decode (counterpart of ``repro/models/attention.py``; its
-cross-attention comes with the enc-dec family).  Under M-RoPE, positions
-are (3, B, S) and the oracle routes mask causality by the temporal
-component, as the reference does (ROADMAP Queue C13).
+"""Grouped-query attention with qk-norm, RoPE or M-RoPE (qwen2-vl),
+cross-attention (whisper: K / V projected from ``kv_src``, no RoPE) and
+KV-cache decode (counterpart of ``repro/models/attention.py``).  Under
+M-RoPE, positions are (3, B, S) and the oracle routes mask causality by
+the temporal component, as the reference does (ROADMAP Queue C13).
 
 Read paths over the cache, as in the reference:
 
@@ -157,23 +157,29 @@ def attention(
     p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, ctx: QuantCtx, path: str,  # (S,) | (B,S) | (3,B,S)
     *, causal: bool = True, window: Optional[int] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None, cache_index=None,
-    chunk: int = 1024, attend_cache: bool = False,
+    chunk: int = 1024, attend_cache: bool = False, rope: bool = True,
+    kv_src: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (output (B,S,d), the cache written in place, or None).
 
     ``attend_cache`` makes an S > 1 chunk attend over the WHOLE cache after
     its K/V are written at ``cache_index``, so earlier chunks of the same
-    prompt stay visible (chunked prefill)."""
+    prompt stay visible (chunked prefill).  ``kv_src`` (B, T, d) is a
+    cross-attention source: K and V project it, and no RoPE applies, as
+    with ``rope=False``."""
     hd = cfg.hd()
     g = cfg.n_heads // cfg.n_kv_heads
+    src = x if kv_src is None else kv_src
 
     q = _split_heads(dense(p["wq"], x, f"{path}/wq", ctx), cfg.n_heads)
-    k = _split_heads(dense(p["wk"], x, f"{path}/wk", ctx), cfg.n_kv_heads)
-    v = _split_heads(dense(p["wv"], x, f"{path}/wv", ctx), cfg.n_kv_heads)
+    k = _split_heads(dense(p["wk"], src, f"{path}/wk", ctx), cfg.n_kv_heads)
+    v = _split_heads(dense(p["wv"], src, f"{path}/wv", ctx), cfg.n_kv_heads)
     if cfg.qk_norm:
         q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if cfg.mrope:
+    if not rope or kv_src is not None:
+        q_pos = positions
+    elif cfg.mrope:
         q = layers.apply_mrope(q, positions, cfg.rope_theta)
         k = layers.apply_mrope(k, positions, cfg.rope_theta)
         q_pos = positions[0]  # the temporal component orders causality (ROADMAP Queue C13)
@@ -202,7 +208,7 @@ def attention(
         out = out.to(x.dtype)
         return dense(p["wo"], out, f"{path}/wo", ctx), cache
 
-    if cache is not None and x.shape[1] > 1 and causal and cfg.flash_prefill:
+    if cache is not None and x.shape[1] > 1 and causal and kv_src is None and cfg.flash_prefill:
         out = _flash_self_path(q, k, v, window, cfg).to(x.dtype)
         return dense(p["wo"], out, f"{path}/wo", ctx), cache
     if g > 1:

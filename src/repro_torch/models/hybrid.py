@@ -96,6 +96,12 @@ def forward(params, tokens, cfg, ctx: QuantCtx, positions=None) -> torch.Tensor:
     return layers.dense(params["lm_head"], hidden(params, tokens, cfg, ctx, positions), "lm_head", ctx)
 
 
+def loss_fn(params, batch, cfg, ctx: QuantCtx) -> torch.Tensor:
+    """Mean token cross entropy of ``batch`` {tokens, labels}."""
+    x = hidden(params, batch["tokens"], cfg, ctx)
+    return layers.lm_head_loss(params["lm_head"], x, batch["labels"], cfg.vocab, "lm_head", ctx)
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cpu"):
     """SSM states per Mamba2 layer, plus a KV cache per superblock in the
     config's kv format (bf16 K/V even for a float32 model)."""

@@ -1,12 +1,16 @@
 """Building-block layers over plain dicts of tensors (counterpart of
 ``repro/models/layers.py``).
 
-Every projection goes through ``dense``: full precision (``x @ W``), or PTQ
-with a QTensor weight through ``qdense`` -- one whole-site call carrying the
-bias and activation into the kernel epilogue, with the plan's calibrated
-static activation exponent where the site has one.  A ctx carrying an
-``observer`` records each site's input range first (the calibration pass).
-The QAT branch of the reference comes with the training slice.
+Every projection goes through ``dense``: full precision (``x @ W``), QAT
+(``mode="qat"``: the weights through their straight-through estimator --
+INQ's learned grid, TTQ's trained scales or the plain weight STE -- and x
+through the clipped 8-bit activation STE, Sec. 4 of the paper), or PTQ
+with a QTensor weight through ``qdense`` -- one whole-site call carrying
+the bias and activation into the kernel epilogue, with the plan's
+calibrated static activation exponent where the site has one.  A ctx
+carrying an ``observer`` records each site's input range first (the
+calibration pass).  ``lm_head_loss`` is the training loss: the lm_head and
+cross entropy in chunks of tokens, each recomputed in the backward pass.
 
 Init functions take an explicit ``torch.Generator`` and ``device``, plus a
 ``leaf(path, key, tensor)`` hook every created parameter passes through, so
@@ -18,8 +22,9 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core import ste
 from repro_torch.core.quantizer import QTensor
-from repro_torch.quant.api import observe_site
+from repro_torch.quant import api as quant_api  # the module: importable while repro_torch.quant initializes
 from repro_torch.quant.backends import apply_act, qdense
 from repro_torch.quant.plan import QuantCtx
 
@@ -49,7 +54,7 @@ def dense(p: Params, x: torch.Tensor, path: str, ctx: QuantCtx,
     """Projection x @ W (+ b) (+ activation ``act``)."""
     w = p["w"]
     if ctx.observer is not None:  # calibration pass: record this site's range
-        observe_site(ctx.observer, path, x)
+        quant_api.observe_site(ctx.observer, path, x)
     if isinstance(w, QTensor):  # PTQ: the full integer pipeline, one call
         prec = ctx.resolve(path)
         y = qdense(
@@ -59,7 +64,23 @@ def dense(p: Params, x: torch.Tensor, path: str, ctx: QuantCtx,
             fused=prec.fused if prec else True,
         )
         return y.to(x.dtype)
-    y = x @ w
+    prec = ctx.resolve(path) if ctx.mode == "qat" else None
+    if prec is not None and prec.quantized:
+        wf = w.to(torch.float32)
+        if "inq_mask" in p:  # learned-grid INQ: the whole tensor onto the trained grid
+            wq = ste.inq_ste(wf, p["inq_mask"], p["inq_scales"], prec.w_bits, prec.group_size, prec.filter_size,
+                             prec.refit_scale, fmt=prec.fmt)
+        elif prec.fmt == "ttq" and "ttq_scales" in p:
+            wq = ste.ttq_ste(wf, p["ttq_scales"], prec.group_size)
+        else:
+            wq = ste.weights_ste(wf, prec.w_bits, prec.group_size, prec.filter_size, prec.refit_scale, fmt=prec.fmt)
+        xq = ste.act_ste(x.to(torch.float32), prec.act_bits).to(x.dtype)
+        y = xq @ wq.to(x.dtype)
+    elif x.dtype != w.dtype:  # jnp's promotion (a bf16 enc_out into a float32 model's cross-attention)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y = x.to(dt) @ w.to(dt)
+    else:
+        y = x @ w
     if "b" in p:
         y = y + p["b"]
     return apply_act(y, act)
@@ -74,6 +95,20 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype, device, path: str = "", leaf: Leaf = keep) -> Params:
+    return {"scale": leaf(path, "scale", torch.ones((d,), dtype=dtype, device=device)),
+            "bias": leaf(path, "bias", torch.zeros((d,), dtype=dtype, device=device))}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """float32 inside, population variance, the result in x's dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"] + p["bias"]).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -136,3 +171,63 @@ def init_embedding(gen, vocab: int, d: int, dtype, device, path: str = "embed",
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens]
+
+
+def _vocab_mask(padded: int, vocab: int, device) -> Optional[torch.Tensor]:
+    """0 over the vocabulary, -1e30 over its padding (out of the partition
+    function), or None without padding."""
+    if padded <= vocab:
+        return None
+    return torch.cat([torch.zeros((vocab,), dtype=torch.float32, device=device),
+                      torch.full((padded - vocab,), -1e30, dtype=torch.float32, device=device)])
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean cross entropy over (B, S, V) logits, the vocabulary's padding
+    masked out."""
+    logits = logits.to(torch.float32)
+    mask = _vocab_mask(logits.shape[-1], vocab, logits.device)
+    if mask is not None:
+        logits = logits + mask
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(lse - gold)
+
+
+def lm_head_loss(head: Params, x: torch.Tensor, labels: torch.Tensor, vocab: int, path: str, ctx: QuantCtx,
+                 chunk_tokens: int = 8192) -> torch.Tensor:
+    """The lm_head and cross entropy fused, in chunks of tokens: x (B, S, d)
+    final hidden states, labels (B, S).  Each chunk's logits are reduced to
+    (logsumexp, gold) and recomputed in the backward pass
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``), so
+    no more than one chunk's (tokens, V) float32 logits exist.  The chunk
+    count is the reference's (the largest divisor of B * S at most
+    B * S // chunk_tokens) and the float32 sum runs chunk by chunk, in its
+    order."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    lt = labels.reshape(t).to(torch.int64)
+    n_chunks = max(1, t // max(chunk_tokens, 1))
+    while t % n_chunks:
+        n_chunks -= 1
+    tc = t // n_chunks
+    mask = _vocab_mask(head["w"].shape[-1], vocab, x.device)
+
+    def body(xc, lc):
+        logits = dense(head, xc, path, ctx).to(torch.float32)
+        if mask is not None:
+            logits = logits + mask
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[:, None])[:, 0]
+        return torch.sum(lse - gold)
+
+    if n_chunks == 1:
+        loss = torch.zeros((), dtype=torch.float32, device=x.device) + body(xt, lt)
+    else:
+        from torch.utils.checkpoint import checkpoint
+
+        loss = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n_chunks):
+            loss = loss + checkpoint(body, xt[i * tc:(i + 1) * tc], lt[i * tc:(i + 1) * tc], use_reentrant=False)
+    return loss / t

@@ -4,26 +4,30 @@ qwen1.5-110b and gemma3-12b (``window_schedule``'s local and global
 layers); MoE -- grok-1-314b and arctic-480b (``models/moe.py``, arctic
 with its dense residual MLP); VLM -- qwen2-vl-72b (``models/vlm.py``:
 M-RoPE, prepended patch embeddings); SSM -- falcon-mamba-7b
-(``models/ssm_lm.py``); hybrid -- zamba2-7b (``models/hybrid.py``).
+(``models/ssm_lm.py``); hybrid -- zamba2-7b (``models/hybrid.py``);
+enc-dec -- whisper-base (``models/encdec.py``).
 
 ``build_model(cfg)`` returns a ``ModelApi`` bound to a device -- the card
 unless the caller passes ``device="cpu"``; with no card and no explicit
 CPU request it raises.  Its members:
 
   init(generator) -> params
+  train_loss(params, batch) -> scalar   (the mean token cross entropy;
+      under a ``mode="qat"`` ctx every quantized site runs its STEs)
   forward(params, batch) -> logits
   init_cache(batch, max_len) -> cache
   prefill(params, batch, cache) -> (last-token logits, cache)
   decode(params, token, pos, cache) -> (logits, cache)
   prefill_chunk(params, tokens, start, cache) -> (last-token logits, cache)
       one (B, S) chunk of prompt at [start, start + S) against the whole
-      cache; None for the SSM and hybrid families, whose recurrent state
-      has no chunk graph (the staged engine prefills them a token at a
-      time through ``decode``)
+      cache; None for the SSM, hybrid and enc-dec families, whose decode
+      state has no chunk graph (the staged engine prefills them a token
+      at a time through ``decode``)
   insert(cache, prefix, slot) -> cache
       a B=1 prefix cache copied into batch row ``slot`` (every leaf's row
       is overwritten, so nothing of the slot's previous occupant survives:
-      an SSM state, unlike a KV row, is not masked by position)
+      an SSM state, unlike a KV row, is not masked by position); the
+      enc-dec family's ``enc_out`` has its batch on axis 0
 
 PTQ: ``quantize_and_plan`` (optionally calibrated on ``make_smoke_batch``
 batches) or ``init_quantized`` (one site at a time, never the whole float
@@ -41,7 +45,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, config_from_dict, config_to_dict
 from repro_torch.convert import LAYER_LISTS
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, ssm_lm, transformer, vlm
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer, vlm
 from repro_torch.quant import api as quant_api
 from repro_torch.quant.backends import BACKENDS
 from repro_torch.quant.plan import QuantCtx, QuantPlan, compile_policy
@@ -54,6 +58,7 @@ class ModelApi:
     ctx: QuantCtx
     device: torch.device
     init: Callable  # (generator) -> params
+    train_loss: Callable  # (params, batch) -> scalar
     forward: Callable  # (params, batch) -> logits
     init_cache: Callable  # (batch, max_len) -> cache
     decode: Callable  # (params, token, pos, cache) -> (logits, cache)
@@ -67,19 +72,31 @@ class ModelApi:
     def with_plan(self, plan: QuantPlan) -> "ModelApi":
         return self.with_ctx(QuantCtx.for_plan(plan))
 
+    def compiled(self, params) -> "ModelApi":
+        """This api's policy compiled against ``params`` (in its mode), or
+        itself for a full-precision ctx."""
+        if self.ctx.policy is None:
+            return self
+        return self.with_plan(compile_policy(self.ctx.policy, params, mode=self.ctx.mode, backend=self.ctx.backend))
+
 
 def make_ctx(cfg: ArchConfig) -> QuantCtx:
     """The pre-compile ctx of ``cfg.quant`` (``QuantCtx.from_config``)."""
     return QuantCtx.from_config(cfg.quant)
 
 
-def insert_prefix(cache, prefix, slot: int):
+def insert_prefix(cache, prefix, slot: int, batch_axis_overrides: Optional[Dict[str, int]] = None):
     """Copy a B=1 ``prefix`` cache into batch row ``slot`` of ``cache``, in
-    place, through nested dicts (every leaf is stacked (layers, B, ...), so
-    the batch axis is 1)."""
+    place, through nested dicts.  Every leaf is stacked (layers, B, ...),
+    so the batch axis is 1; ``batch_axis_overrides`` names top-level
+    leaves whose batch axis differs (the enc-dec family's (B, T, d)
+    ``enc_out``: 0)."""
+    over = batch_axis_overrides or {}
     for name, leaf in cache.items():
         if isinstance(leaf, dict):
             insert_prefix(leaf, prefix[name], slot)
+        elif over.get(name, 1) == 0:
+            leaf[int(slot)] = prefix[name][0]
         else:
             leaf[:, int(slot)] = prefix[name][:, 0]
     return cache
@@ -87,7 +104,7 @@ def insert_prefix(cache, prefix, slot: int):
 
 # family -> the init of its parameter tree, (generator, cfg, device, leaf) -> params
 _INIT = {"dense": transformer.init_lm, "moe": transformer.init_lm, "vlm": transformer.init_lm,
-         "ssm": ssm_lm.init_ssm_lm, "hybrid": hybrid.init_hybrid}
+         "ssm": ssm_lm.init_ssm_lm, "hybrid": hybrid.init_hybrid, "encdec": encdec.init_encdec}
 
 
 def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None) -> ModelApi:
@@ -95,27 +112,38 @@ def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None)
     ctx = ctx or make_ctx(cfg)
     fam = cfg.family
     if fam not in _INIT:
-        raise NotImplementedError(
-            f"{cfg.name}: the {fam} family is not ported yet (ROADMAP Queue A7.5: the enc-dec family); ported: "
-            f"{sorted(_INIT)}")
+        raise ValueError(fam)
     init = lambda gen: _INIT[fam](gen, cfg, dev)  # noqa: E731
+    if fam == "encdec":
+        return ModelApi(
+            cfg, ctx, dev, init=init,
+            train_loss=lambda p, b: encdec.loss_fn(p, b, cfg, ctx),
+            forward=lambda p, b: encdec.forward(p, b, cfg, ctx),
+            init_cache=lambda b, m: encdec.init_cache(cfg, b, m, device=dev),
+            decode=lambda p, t, pos, c: encdec.decode_step(p, t, pos, cfg, ctx, c),
+            prefill=lambda p, b, c: encdec.prefill(p, b, cfg, ctx, c),
+            insert=lambda c, pre, s: insert_prefix(c, pre, s, batch_axis_overrides={"enc_out": 0}),
+        )
     if fam in ("ssm", "hybrid"):
         mod = ssm_lm if fam == "ssm" else hybrid
         return ModelApi(
             cfg, ctx, dev, init=init,
+            train_loss=lambda p, b: mod.loss_fn(p, b, cfg, ctx),
             forward=lambda p, b: mod.forward(p, b["tokens"], cfg, ctx),
             init_cache=lambda b, m: mod.init_cache(cfg, b, m, device=dev),
             decode=lambda p, t, pos, c: mod.decode_step(p, t, pos, cfg, ctx, c),
             insert=insert_prefix,  # SSM states and per-superblock KV: all (layers, B, ...)
         )
     if fam == "vlm":
+        train_loss = lambda p, b: vlm.loss_fn(p, b, cfg, ctx)  # noqa: E731
         forward = lambda p, b: vlm.forward(p, b, cfg, ctx)  # noqa: E731
         prefill = lambda p, b, c: vlm.prefill(p, b, cfg, ctx, c)  # noqa: E731
     else:
+        train_loss = lambda p, b: transformer.loss_fn(p, b, cfg, ctx)  # noqa: E731
         forward = lambda p, b: transformer.forward(p, b["tokens"], cfg, ctx)  # noqa: E731
         prefill = lambda p, b, c: transformer.prefill(p, b["tokens"], cfg, ctx, c)  # noqa: E731
     return ModelApi(
-        cfg, ctx, dev, init=init, forward=forward,
+        cfg, ctx, dev, init=init, train_loss=train_loss, forward=forward,
         init_cache=lambda b, m: transformer.init_cache(cfg, b, m, device=dev),
         decode=lambda p, t, pos, c: transformer.decode_step(p, t, pos, cfg, ctx, c),
         prefill=prefill,
@@ -125,16 +153,22 @@ def build_model(cfg: ArchConfig, ctx: Optional[QuantCtx] = None, *, device=None)
 
 
 def make_smoke_batch(gen: torch.Generator, cfg: ArchConfig, batch: int, seq: int) -> Dict[str, torch.Tensor]:
-    """A seeded (batch, seq) token batch on ``gen``'s device; a VLM's also
-    carries ``vision_embeds`` (batch, n_frontend_tokens, d_model) and their
-    (3, batch, n_vis + seq) M-RoPE ``positions`` (the reference draws its
-    own with ``jax.random``; labels come with training)."""
-    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=gen.device, dtype=torch.int32)}
+    """A seeded (batch, seq) batch on ``gen``'s device: ``tokens``; a VLM's
+    ``vision_embeds`` (batch, n_frontend_tokens, d_model) and their (3,
+    batch, n_vis + seq) M-RoPE ``positions``; an enc-dec model's ``frames``
+    (batch, n_audio_frames, d_model); then the training ``labels`` (batch,
+    seq), drawn last.  (The reference draws its own with ``jax.random``.)"""
+    dev = gen.device
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev, dtype=torch.int32)}
     if cfg.family == "vlm":
         nv = cfg.n_frontend_tokens
-        out["vision_embeds"] = (torch.randn((batch, nv, cfg.d_model), generator=gen, device=gen.device) * 0.1
+        out["vision_embeds"] = (torch.randn((batch, nv, cfg.d_model), generator=gen, device=dev) * 0.1
                                 ).to(getattr(torch, cfg.dtype))
-        out["positions"] = vlm.build_mrope_positions(batch, nv, seq, device=gen.device)
+        out["positions"] = vlm.build_mrope_positions(batch, nv, seq, device=dev)
+    if cfg.family == "encdec":
+        out["frames"] = (torch.randn((batch, cfg.n_audio_frames, cfg.d_model), generator=gen, device=dev) * 0.1
+                         ).to(getattr(torch, cfg.dtype))
+    out["labels"] = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev, dtype=torch.int32)
     return out
 
 

@@ -18,11 +18,14 @@ The expert FFN (gate, up, down) runs as: fp, einsums; PTQ, the expert
 ``qmatmul`` (``quant/backends.py``): one ``quantize_rows`` and ONE packed
 launch per site over every expert; calibration, each site's (E, C, d)
 buffer observed like a dense site's input (its zero padding never raises
-max|x|).  What waits: expert parallelism over a mesh (the reference's
+max|x|); QAT (``mode="qat"``), each expert's weights through the weight
+STE and the buffer through the activation STE, then the einsum, as the
+reference's ``_quantize_expert_weights`` / ``_expert_matmul`` do.
+``aux_load_balance_loss`` is the Switch-style auxiliary loss a trainer may
+add.  What waits: expert parallelism over a mesh (the reference's
 ``expert_ffn_ep``, ``_use_ep``, ``_ep_cap_axes``) with multi-GPU serving
-(ROADMAP A10); the QAT branch and ``aux_load_balance_loss`` with training
-(A9).  The reference's ``FLAT_CHUNKING`` toggle (a perf experiment, off by
-default) is not ported.
+(ROADMAP A10).  The reference's ``FLAT_CHUNKING`` toggle (a perf
+experiment, off by default) is not ported.
 """
 from __future__ import annotations
 
@@ -31,9 +34,10 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.core import ste
 from repro_torch.core.quantizer import QTensor
 from repro_torch.models import layers
-from repro_torch.quant.api import observe_site
+from repro_torch.quant import api as quant_api  # the module: importable while repro_torch.quant initializes
 from repro_torch.quant.backends import apply_act, qmatmul
 from repro_torch.quant.plan import QuantCtx
 
@@ -62,14 +66,20 @@ def init_moe(gen, cfg, dtype, device, path: str = "blocks/moe", leaf=layers.keep
 
 
 def _expert_matmul(w, x: torch.Tensor, path: str, ctx: QuantCtx) -> torch.Tensor:
-    """x (E, C, d_in) @ w (E, d_in, d_out): float weights, or an expert
-    site's QTensor (the expert qmatmul, f32 out)."""
+    """x (E, C, d_in) @ w (E, d_in, d_out): float weights (fake-quantized
+    under QAT), or an expert site's QTensor (the expert qmatmul, f32 out)."""
     if ctx.observer is not None:  # calibration pass: one record a site a call, as dense() sites
-        observe_site(ctx.observer, path, x)
+        quant_api.observe_site(ctx.observer, path, x)
     if isinstance(w, QTensor):
         prec = ctx.resolve(path)
         return qmatmul(x, w, backend=ctx.backend, act_bits=prec.act_bits if prec else 8,
                        act_exponent=ctx.act_exponent(path))
+    prec = ctx.resolve(path) if ctx.mode == "qat" else None
+    if prec is not None and prec.quantized:
+        wq = torch.stack([ste.weights_ste(we.to(torch.float32), prec.w_bits, prec.group_size, prec.filter_size,
+                                          prec.refit_scale, fmt=prec.fmt) for we in w]).to(x.dtype)
+        xq = ste.act_ste(x.to(torch.float32), prec.act_bits).to(x.dtype)
+        return torch.einsum("ecd,edf->ecf", xq, wq)
     return torch.einsum("ecd,edf->ecf", x, w)
 
 
@@ -147,3 +157,12 @@ def moe_layer(p, x: torch.Tensor, path: str, cfg, ctx: QuantCtx) -> torch.Tensor
     if "residual_mlp" in p:
         out = out + layers.mlp(p["residual_mlp"], x, f"{path}/residual_mlp", ctx)
     return out
+
+
+def aux_load_balance_loss(logits: torch.Tensor, top_ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: n_experts * sum over experts of the mean
+    router probability times the share of top-k picks."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    me = probs.mean(0)
+    ce = torch.bincount(top_ids.reshape(-1), minlength=n_experts).to(torch.float32) / top_ids.numel()
+    return n_experts * torch.sum(me * ce)

@@ -41,6 +41,12 @@ def forward(params, tokens, cfg, ctx: QuantCtx) -> torch.Tensor:
     return layers.dense(params["lm_head"], hidden(params, tokens, cfg, ctx), "lm_head", ctx)
 
 
+def loss_fn(params, batch, cfg, ctx: QuantCtx) -> torch.Tensor:
+    """Mean token cross entropy of ``batch`` {tokens, labels}."""
+    x = hidden(params, batch["tokens"], cfg, ctx)
+    return layers.lm_head_loss(params["lm_head"], x, batch["labels"], cfg.vocab, "lm_head", ctx)
+
+
 def stacked_state(cfg, n: int, batch: int, device) -> Dict[str, torch.Tensor]:
     """Zeroed SSM states of ``n`` layers, each leaf (n, B, ...)."""
     return {name: torch.zeros((n, *leaf.shape), dtype=leaf.dtype, device=device)

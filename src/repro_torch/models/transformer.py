@@ -103,6 +103,18 @@ def forward(params, tokens, cfg, ctx: QuantCtx, positions=None, extra_embeds=Non
     return layers.dense(params["lm_head"], x, "lm_head", ctx)
 
 
+def loss_fn(params, batch, cfg, ctx: QuantCtx) -> torch.Tensor:
+    """Mean token cross entropy of ``batch`` {tokens, labels[, positions,
+    extra_embeds]}; with prepended embeddings (a VLM) the loss is on the
+    text tail only."""
+    x = hidden(params, batch["tokens"], cfg, ctx, positions=batch.get("positions"),
+               extra_embeds=batch.get("extra_embeds"))
+    labels = batch["labels"]
+    if x.shape[1] != labels.shape[1]:
+        x = x[:, -labels.shape[1]:]
+    return layers.lm_head_loss(params["lm_head"], x, labels, cfg.vocab, "lm_head", ctx)
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cpu"):
     """kv leaves stacked (L, B, T, ...), bf16 even for a float32 model."""
     return kv_cache.init_cache(cfg, (cfg.n_layers, batch), max_len, dtype, device)

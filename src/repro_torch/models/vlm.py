@@ -30,6 +30,13 @@ def forward(params, batch, cfg, ctx: QuantCtx) -> torch.Tensor:
                                extra_embeds=batch["vision_embeds"])
 
 
+def loss_fn(params, batch, cfg, ctx: QuantCtx) -> torch.Tensor:
+    """The loss on the text tail, after the patch embeddings."""
+    return transformer.loss_fn(params, {"tokens": batch["tokens"], "labels": batch["labels"],
+                                        "positions": batch["positions"], "extra_embeds": batch["vision_embeds"]},
+                               cfg, ctx)
+
+
 def prefill(params, batch, cfg, ctx: QuantCtx, cache):
     """Fill the cache with the patch embeddings and the text tokens at
     [0, n_vis + S) under the batch's M-RoPE positions; returns (last-token

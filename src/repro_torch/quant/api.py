@@ -87,14 +87,15 @@ def _quantizable(prec, kdim: int) -> bool:
     )
 
 
-def quantize_leaf(path: str, key: str, val, plan: QuantPlan):
-    """The quantized form of one parameter leaf at ``path/key``."""
+def quantize_leaf(path: str, key: str, val, plan: QuantPlan, scales=None):
+    """The quantized form of one parameter leaf at ``path/key``; ``scales``
+    is a site's trained grid (quantization state), deployed as it is."""
     if is_projection_site(key, val) and isinstance(val, torch.Tensor):
         prec = plan.resolve(path)
         if _quantizable(prec, val.shape[-2]):
             # quantize_weights casts to float32 itself, an expert at a time: no float32 copy of a whole stack
             return quantize_weights(
-                val, prec.w_bits, prec.group_size, prec.filter_size, prec.refit_scale, fmt=prec.fmt,
+                val, prec.w_bits, prec.group_size, prec.filter_size, prec.refit_scale, fmt=prec.fmt, scales=scales,
             )
         return val
     if key == "table" and isinstance(val, torch.Tensor):
@@ -102,9 +103,23 @@ def quantize_leaf(path: str, key: str, val, plan: QuantPlan):
     return val
 
 
+def _trained_scales(node, prec):
+    """A site's learned grid: ttq's Wp / Wn where the site is ttq, else the
+    magnitude of INQ's grid (training may move a scale across zero; the
+    STE folds it the same way), else None (a fit from ``w``)."""
+    if prec is not None and prec.fmt == "ttq" and "ttq_scales" in node:
+        return node["ttq_scales"]
+    sc = node.get("inq_scales")
+    return None if sc is None else torch.abs(sc)
+
+
 def quantize_params(params, plan: QuantPlan):
     """Walk the tree; projection ``w`` leaves become QTensors (an (E, K, N)
-    expert stack one QTensor with a leading E axis)."""
+    expert stack one QTensor with a leading E axis).  A site carrying
+    quantization state (``quant/state.py``) is quantized on its learned
+    grid, and the state leaves are consumed: the result holds only
+    servable parameters."""
+    from repro_torch.quant.state import STATE_KEYS  # lazy: state imports this module
 
     def walk(node, path):
         if isinstance(node, list):
@@ -112,10 +127,13 @@ def quantize_params(params, plan: QuantPlan):
         if isinstance(node, dict):
             out = {}
             for key, val in node.items():
+                if key in STATE_KEYS:
+                    continue
                 if isinstance(val, (dict, list)):
                     out[key] = walk(val, site_subpath(path, key))
                 else:
-                    out[key] = quantize_leaf(path, key, val, plan)
+                    scales = _trained_scales(node, plan.resolve(path)) if is_projection_site(key, val) else None
+                    out[key] = quantize_leaf(path, key, val, plan, scales)
             return out
         return node
 

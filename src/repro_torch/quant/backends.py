@@ -9,7 +9,9 @@
                packed ``kernel``, then ``out * 2**(scale_e + x_e)``, bias,
                activation.  Each kernel wrapper launches its CUDA kernel
                for a CUDA tensor and runs its plain version for a CPU one.
-               The kernels take any M: no ``m_bucket`` padding.
+               The kernels take any M: no ``m_bucket`` padding.  A
+               format without kernels (ttq) raises here, as the
+               reference's ``pallas`` does.
   * ``auto`` : ``cuda`` for a CUDA tensor, ``ref`` for a CPU tensor.
 """
 from __future__ import annotations
@@ -58,6 +60,17 @@ def _cuda_backend(xq: torch.Tensor, xe, qt: QTensor, block_k: int) -> torch.Tens
     return out * dfp.exp2i(scale_e + xe)
 
 
+def _backend(backend: str, x: torch.Tensor, qt: QTensor) -> str:
+    """``resolve_backend``, refusing ``cuda`` for a format without kernels
+    (ttq) before anything launches, as the reference's ``pallas`` does."""
+    from repro_torch.quant.formats import format_of
+
+    name = resolve_backend(backend, x)
+    if name == "cuda" and format_of(qt).kernel is None:
+        raise ValueError(f"format {qt.fmt!r} has no CUDA kernel; serve it through backend='ref'")
+    return name
+
+
 def _unfused(xm: torch.Tensor, qt: QTensor, name: str, act_bits: int, act_exponent, block_k: int):
     """Quantize, then the backend's matmul with exponents applied."""
     xq, xe = quantize_activations(xm, act_bits, exponent=act_exponent, backend=name)
@@ -85,11 +98,12 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *, backend: str = "auto", act_bits: in
     activations (per-row dynamic exponents, or the static ``act_exponent``),
     int32 cluster sums, one scale multiply per cluster.  An expert site's
     QTensor (``qt.experts`` = E) takes x (E, C, K) -> (E, C, N)."""
+    name = _backend(backend, x, qt)
     if qt.experts:
-        return _expert_qmatmul(x.contiguous(), qt, resolve_backend(backend, x), act_bits, act_exponent, block_k)
+        return _expert_qmatmul(x.contiguous(), qt, name, act_bits, act_exponent, block_k)
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1]).contiguous()
-    out = _unfused(xm, qt, resolve_backend(backend, x), act_bits, act_exponent, block_k)
+    out = _unfused(xm, qt, name, act_bits, act_exponent, block_k)
     return out.reshape(*lead, qt.n)
 
 
@@ -108,7 +122,7 @@ def qdense(
 
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1]).contiguous()
-    name = resolve_backend(backend, x)
+    name = _backend(backend, x, qt)
     if name == "cuda" and fused:
         out = format_of(qt).fused_kernel(
             xm, qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size,

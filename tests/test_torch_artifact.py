@@ -6,7 +6,8 @@ MoE family's (grok-1-314b smoke) stacked expert sites both ways, its
 reference artifact cold-started by both engines; the VLM, SSM and hybrid
 families' artifacts both ways (the hybrid's ``mamba_stack``, ``tail_stack``
 and ``shared`` stacks) and their decode caches, nested SSM states
-included; the tamper, corruption and IO-flake cases fall back or fail
+included; the enc-dec family's at 2, 4 and 8 bits, its cache's
+``enc_out`` included; the tamper, corruption and IO-flake cases fall back or fail
 closed as the reference's tests require."""
 import dataclasses
 import hashlib
@@ -310,6 +311,45 @@ def test_family_artifacts_both_ways(family_model, tmp_path):
     tcache = cache_from_jax(jax.tree.map(np.asarray, jcache), device="cpu")
     fresh = api.init_cache(2, 16)
     assert list(_flat(tcache)) and [p for p, _ in _flat(tcache)] == [p for p, _ in _flat(fresh)]
+    for (path, got), (_, want_leaf) in zip(_flat(tcache), _flat(fresh)):
+        assert got.dtype == want_leaf.dtype and got.shape == want_leaf.shape and torch.equal(got, want_leaf), path
+
+
+# ---------------------------------------------------------------------------
+# The enc-dec family (whisper-base smoke): its tree and cache both ways.
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", params=[2, 4, 8], ids=["bits2", "bits4", "bits8"])
+def whisper_model(request):
+    """(cfg, qparams, plan, plan-bound api) of the reference's whisper-base smoke model at ``bits``."""
+    cfg = jconfigs.get_smoke("whisper-base", JQuantConfig(w_bits=request.param, group_size=16, mode="ptq",
+                                                          backend="ref"))
+    api = jbuild(cfg)
+    qparams, plan, qapi = jquantize_and_plan(api, api.init(jax.random.PRNGKey(0)))
+    return cfg, qparams, plan, qapi
+
+
+def test_whisper_artifacts_both_ways(whisper_model, tmp_path):
+    """As the reference's ``test_artifact_roundtrip_family_x_format`` for
+    its encdec family, across the packages: the reference's artifact read
+    by the port bit for bit (``enc_blocks`` / ``dec_blocks`` split into
+    lists), the port's artifact of the same tree the reference's files
+    byte for byte and read back by the reference, and the decode cache
+    (``enc_out`` included) converted leaf for leaf."""
+    cfg, qparams, plan, qapi = whisper_model
+    jsave_servable(str(tmp_path / "jax"), qapi, qparams, plan)
+    api, loaded, art = load_servable(str(tmp_path / "jax"), device="cpu")
+    _assert_bit_exact(loaded, params_from_jax(qparams, device="cpu"))
+    assert art.plan.to_json() == plan.to_json() and tconfigs.config_to_dict(api.cfg) == jconfig_to_dict(cfg)
+    assert {k: len(v) for k, v in loaded.items() if isinstance(v, list)} == {"enc_blocks": 2, "dec_blocks": 2}
+    save_servable(str(tmp_path / "port"), api, loaded, QuantPlan.from_json(plan.to_json()))
+    assert _files(tmp_path / "port" / STEP0) == _files(tmp_path / "jax" / STEP0)
+    japi2, jloaded, _ = jload_servable(str(tmp_path / "port"))
+    _assert_bit_exact(params_from_jax(jloaded, device="cpu"), loaded)
+
+    jcache = qapi.init_cache(2, 16)
+    tcache = cache_from_jax(jax.tree.map(np.asarray, jcache), device="cpu")
+    fresh = api.init_cache(2, 16)
+    assert "enc_out" in tcache and [p for p, _ in _flat(tcache)] == [p for p, _ in _flat(fresh)]
     for (path, got), (_, want_leaf) in zip(_flat(tcache), _flat(fresh)):
         assert got.dtype == want_leaf.dtype and got.shape == want_leaf.shape and torch.equal(got, want_leaf), path
 

@@ -9,8 +9,8 @@ plain version and flash decode against the reference's), the StagedEngine's
 greedy tokens against the reference's with flash off and on, the lockstep
 engine's against the reference's, and the reference's packed artifact read
 by the port bit for bit at 2, 4 and 8 bits.  ``build_model`` builds the
-MoE, VLM, SSM and hybrid families and refuses the enc-dec one, naming the
-step that ports it.  Token
+MoE, VLM, SSM, hybrid and enc-dec families and refuses a family the
+reference does not have, by name.  Token
 gates pair like with like: flash with flash, oracle with oracle.
 """
 import dataclasses
@@ -179,14 +179,16 @@ def test_reference_artifact_loads_bit_exact(arch, bits, tmp_path):
     assert tconfigs.config_to_dict(api.cfg) == jconfig_to_dict(jcfg)
 
 
-@pytest.mark.parametrize("arch,step", [("grok-1-314b", None), ("arctic-480b", None), ("qwen2-vl-72b", None),
-                                       ("zamba2-7b", None), ("falcon-mamba-7b", None), ("whisper-base", "A7.5")])
-def test_build_model_refuses_other_families(arch, step):
-    """The MoE, VLM, hybrid and SSM families build (``step`` None); the
-    enc-dec family is refused, naming the step that ports it."""
+@pytest.mark.parametrize("arch,family", [("grok-1-314b", None), ("arctic-480b", None), ("qwen2-vl-72b", None),
+                                         ("zamba2-7b", None), ("falcon-mamba-7b", None), ("whisper-base", None),
+                                         ("qwen3-8b", "speech")])
+def test_build_model_refuses_other_families(arch, family):
+    """Every family of the reference builds (``family`` None), the enc-dec
+    whisper-base included; a family the reference does not have is refused
+    by name, as the reference's ``build_model`` refuses it."""
     cfg = tconfigs.config_from_dict(jconfig_to_dict(jconfigs.get_smoke(arch)))
-    if step is None:
+    if family is None:
         assert tbuild(cfg, device="cpu").cfg == cfg
         return
-    with pytest.raises(NotImplementedError, match=step):
-        tbuild(cfg, device="cpu")
+    with pytest.raises(ValueError, match=family):
+        tbuild(dataclasses.replace(cfg, family=family), device="cpu")

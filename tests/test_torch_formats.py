@@ -128,11 +128,15 @@ def test_rows_per_block_fit_shared_memory(m, k, decode, group, rows):
 
 
 def test_registry_order_keeps_bits_defaults():
-    assert format_names() == ("int4", "int8", "mx", "nf4", "ternary")
+    """Every format of the reference is registered (ttq, the trained
+    ternary format, since QAT came to the port); the width defaults stay
+    the built-ins; an unknown name is refused."""
+    assert format_names() == ("int4", "int8", "mx", "nf4", "ternary", "ttq")
+    assert format_for_bits(2).name == "ternary"
     assert format_for_bits(4).name == "int4" and format_for_bits(8).name == "int8"
     assert get_format("mx").block_size == 32 and get_format("nf4").block_size is None
     with pytest.raises(KeyError, match="registered"):
-        get_format("ttq")
+        get_format("int3")
 
 
 # ---------------------------------------------------------------------------

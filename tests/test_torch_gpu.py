@@ -939,3 +939,65 @@ def test_qdense_new_family_shapes_bit_exact(dev, m, k, n, bias):
     want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode="ternary", group=64, bias=b)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The enc-dec family (whisper-base): flash_attend at head_dim 64 (G = 1),
+# qdense at its shapes (K 512 in one k-tile, up with its bias, down K 2048,
+# the int8 lm_head at N 51968), and QAT's forward and backward on the card.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("fmt", ["kv_bf16", "kv_int8", "kv_mx"])
+@pytest.mark.parametrize("s", [1, 31, 64])
+def test_flash_hd_64_matches_plain(dev, fmt, s):
+    """whisper's decoder self-attention: 8 heads of 64 over 8 kv heads, T
+    448 (the decoder's position table), ragged fills; kv_mx rows of 32
+    bytes."""
+    gen = torch.Generator(device=dev).manual_seed(64 + s)
+    b, t, kh, g, hd = 4, 448, 8, 1, 64
+    c = _packed_cache(fmt, b, t, kh, hd, gen, dev)
+    q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev)
+    valid = torch.tensor([[s], [100], [447], [448]], dtype=torch.int32, device=dev)
+    win = torch.tensor([[2**30]], dtype=torch.int32, device=dev)
+    args = (q, c["k"], c["v"], c.get("ke"), c.get("ve"), valid - s, valid, win)
+    got = flash_attend(*args, fmt=fmt)
+    want = flash_attend_ref(*args, fmt=fmt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("m", [1, 4, 17, 1500])
+@pytest.mark.parametrize("k,n,bias,fmt", [(512, 512, False, "ternary"), (512, 2048, True, "ternary"),
+                                          (2048, 512, True, "ternary"), (512, 51968, False, "int8")])
+def test_qdense_whisper_shapes_bit_exact(dev, m, k, n, bias, fmt):
+    """whisper's projections (bias on up and down), the tile at the
+    encoder's 1500 rows, the int8 lm_head at N 51968: 0 ulps."""
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * k**-0.5, 2 if fmt == "ternary" else 8, 64,
+                          fmt=fmt)
+    x = (torch.randn((m, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    b = (torch.randn((n,), generator=gen, device=dev) * 0.1).to(torch.bfloat16) if bias else None
+    entry = ternary_matmul_fused if fmt == "ternary" else int8_matmul_fused
+    got = entry(x, qt.packed, qt.scale_m, qt.scale_e, group=64, bias=b)
+    want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode=fmt, group=64, bias=b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_qat_straight_through_gradient_on_the_card(dev):
+    """QAT's backward on the card: one ternary site, 8-bit activations; the
+    master weight's gradient equals the gradient taken with respect to the
+    fake-quantized weight, bit for bit; the fake-quantized weight equals
+    the same function on the CPU."""
+    from repro_torch.core import ste
+    from repro_torch.quant.formats import fake_quantize_weights
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = (torch.randn((512, 256), generator=gen, device=dev) * 512**-0.5).requires_grad_(True)
+    x = torch.randn((32, 512), generator=gen, device=dev)
+    wq = ste.weights_ste(w, 2, 64)
+    wq.retain_grad()
+    loss = (ste.act_ste(x, 8) @ wq).square().mean()
+    loss.backward()
+    assert torch.equal(w.grad, wq.grad)
+    cpu = fake_quantize_weights(w.detach().cpu(), 2, 64)
+    assert torch.equal(wq.detach().cpu(), cpu)
