@@ -214,7 +214,24 @@ Phases, in order; any failure exits non-zero:
                  fake-quantized weight; one full-width site's fake-quantized
                  weight on the card against the CPU's (differing values
                  counted); s and peak GB
- 14. timings  -- kernel, plain version, library call (a yardstick the port
+ 14. train    -- the training loop on the card (plain torch: the reference's
+                 training path reaches no Pallas kernel): whisper-base at
+                 full depth, float32 masters, QAT ternary group 64, DFP-8
+                 moments, 2 x 256 tokens with seeded frames, 8 Trainer steps
+                 with a checkpoint every 4; a new Trainer restores step 4
+                 (step 8's checkpoint removed) and trains 4 more, its losses
+                 equal to the straight run's within rtol 1e-4 (bit-equal
+                 ones counted); qwen3-8b at its published widths and all 36
+                 layers (a shallower depth only if 36 do not fit, the cut
+                 logged), bf16 masters, QAT ternary group 64, DFP-8 moments,
+                 remat, 3 steps (losses finite; s a step, the optimizer's
+                 share by CUDA events, init and step peak GB), the float32
+                 moments' reckoning logged, not run; 4 layers one step with
+                 remat on and off (peak GB); the paper's recovery on the
+                 benchmark's tiny LM (fp 100 steps, one-shot ternary N64
+                 PTQ, 60 steps each of qat, ttq and inq): each must end
+                 below PTQ's loss, the reference's values logged beside
+ 15. timings  -- kernel, plain version, library call (a yardstick the port
                  never calls) and the bound from bytes and operations
                  (flash: at the bf16 tensor-core peak, the float32 one
                  logged beside it); qdense per site and per layer at M = 4
@@ -3035,7 +3052,9 @@ def _qat_run(dev, arch, n_layers=None) -> None:
     the gradient at its fake-quantized weight, the s and peak GB."""
     from repro_torch.models import build_model, make_smoke_batch
 
-    cfg = _ptq_cfg(n_layers, arch=arch, dtype="float32", quant=dict(mode="qat"))
+    # remat off: the recorder's hooks sit on the forward's tensors, which a recompute replaces (phase 14 trains
+    # with remat)
+    cfg = _ptq_cfg(n_layers, arch=arch, dtype="float32", quant=dict(mode="qat"), remat=False)
     _free()
     torch.cuda.reset_peak_memory_stats()
     api = build_model(cfg, device=dev)
@@ -3070,15 +3089,14 @@ def _qat_run(dev, arch, n_layers=None) -> None:
         raise SystemExit(f"qat {arch}: the loss is not finite or the STE gradient differs at sites {mismatched}")
 
 
+def _tensor_leaves(tree):
+    from repro_torch.tree import tree_leaves
+
+    return (t for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
 def _float_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _float_leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _float_leaves(v)
-    elif isinstance(tree, torch.Tensor) and tree.is_floating_point():
-        yield tree
+    return (t for t in _tensor_leaves(tree) if t.is_floating_point())
 
 
 def _qat_cpu_site(params) -> None:
@@ -3111,7 +3129,284 @@ def phase_qat(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 14. timings
+# 14. train
+# ---------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ = 2, 256
+TRAIN_QWEN_DEPTHS = (36, 32, 24)  # all 36 layers; a shallower model only if 36 does not fit, the cut logged
+TRAIN_QWEN_STEPS, TRAIN_WHISPER_STEPS = 3, 8
+TRAIN_CKPT = os.path.join(HERE, "build", "train_ckpt")
+# benchmarks/BENCH_finetune.json: the reference's ternary N64 cell (150 fp + 120 fine-tuning steps), eval losses
+RECOVERY_REFERENCE = {"fp": 1.0655, "ptq": 3.0421, "qat": 1.5508, "ttq": 1.4474, "inq": 1.1715}
+
+
+def _train_cfg(arch, n_layers=None, **over):
+    """``arch`` at its published widths under QAT: ternary group 64, the
+    paper's policy."""
+    return dataclasses.replace(_ptq_cfg(n_layers, arch=arch, quant=dict(mode="qat")), **over)
+
+
+class _OptTimer:
+    """Inside ``with``, the CUDA-event time of every optimizer step the
+    trainer takes (read after a synchronise)."""
+
+    def __enter__(self):
+        from repro_torch.training import optimizer as opt_lib
+
+        self.mod, self.fn, self.events = opt_lib, opt_lib.apply_updates, []
+
+        def timed(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.fn(*a, **kw)
+            e1.record()
+            self.events.append((e0, e1))
+            return out
+
+        opt_lib.apply_updates = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.apply_updates = self.fn
+
+    def seconds(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) / 1e3 for a, b in self.events]
+
+
+def _timed_steps(tr, batch_fn, n: int) -> tuple:
+    """``n`` steps, one ``train`` call each (its one flush synchronises):
+    (losses, s a step, optimizer s a step)."""
+    losses, secs = [], []
+    with _OptTimer() as ot:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            losses += tr.train(batch_fn, 1)["loss"]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    return losses, secs, ot.seconds()
+
+
+def _steps_str(secs, opt_s) -> str:
+    return (f"s a step {', '.join(f'{s:.3f}' for s in secs)} (optimizer {', '.join(f'{s:.3f}' for s in opt_s)}; "
+            f"steady {secs[-1]:.3f} s, optimizer {100 * opt_s[-1] / secs[-1]:.1f}%)")
+
+
+def _train_whisper(dev) -> None:
+    """whisper-base at full depth, float32 masters, DFP-8 moments: 8 steps
+    with a checkpoint every 4, then a new Trainer restores step 4 (step 8's
+    checkpoint removed: the node died before it) and trains 4 more; its
+    losses equal the uninterrupted run's within rtol 1e-4 (the reference's
+    resume bound; not deterministic mode: the embedding's backward adds
+    with atomics), the bit-equal ones counted."""
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, TrainConfig, Trainer
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig, make_batch
+
+    cfg = _train_cfg(WHISPER, dtype="float32")
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    api = build_model(cfg, device=dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    api = api.compiled(params)
+    dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED)
+    batch_fn = lambda i: make_batch(cfg, dcfg, i, device=dev)  # noqa: E731
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-4, warmup_steps=2, decay_steps=TRAIN_WHISPER_STEPS, state_bits=8),
+                       ckpt_dir=TRAIN_CKPT, ckpt_every=4)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    tr = Trainer(api.train_loss, _detached(params), tcfg, plan=api.ctx.plan)  # params stay for the resumed run
+    losses, secs, opt_s = _timed_steps(tr, batch_fn, TRAIN_WHISPER_STEPS)
+    peak = _peak_gb()
+    n_params = sum(t.numel() for t in _float_leaves(tr.params))
+    del tr
+    assert ckpt.list_steps(TRAIN_CKPT) == [4, 8], ckpt.list_steps(TRAIN_CKPT)
+    shutil.rmtree(ckpt.step_dir(TRAIN_CKPT, 8))
+    t0 = time.perf_counter()
+    resumed = Trainer(api.train_loss, params, tcfg, plan=api.ctx.plan)
+    start = resumed.maybe_restore()
+    restore_s = time.perf_counter() - t0
+    again = resumed.train(batch_fn, TRAIN_WHISPER_STEPS - start)["loss"]
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    ref = losses[start:]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(again, ref))
+    ok = start == 4 and len(again) == len(ref) and gap <= 1e-4 and all(math.isfinite(x) for x in losses)
+    log(f"train {WHISPER} ({cfg.n_enc_layers} + {cfg.n_layers} layers, full width, {n_params / 1e9:.3f} B float32 "
+        f"parameters, QAT ternary group {GROUP}, DFP-8 moments, batch {TRAIN_BATCH} x {TRAIN_SEQ}): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; {_steps_str(secs, opt_s)}; peak {peak:.2f} GB; restored step "
+        f"{start} in {restore_s:.2f} s, steps {start}-{TRAIN_WHISPER_STEPS - 1} again "
+        f"{', '.join(f'{x:.4f}' for x in again)}: {sum(a == b for a, b in zip(again, ref))} of {len(ref)} bit-equal, "
+        f"largest relative gap {gap:.2e} (rtol 1e-4) {'OK' if ok else 'FAIL'}")
+    del resumed, params, api
+    _free()
+    if not ok:
+        raise SystemExit(f"train {WHISPER}: the resumed run's losses {again} differ from {ref}")
+
+
+def _train_qwen(dev, n_layers: int, steps: int, remat: bool = True) -> dict:
+    """qwen3-8b at its published widths, ``n_layers`` deep: bf16 masters,
+    QAT ternary group 64, DFP-8 moments, ``remat``; ``steps`` steps on
+    2 x 256 tokens.  Returns the losses, times and peaks."""
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, TrainConfig, Trainer
+    from repro_torch.training.data import DataConfig, make_batch
+
+    cfg = _train_cfg(ARCH, n_layers, remat=remat)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    api = api.compiled(params)
+    tr = Trainer(api.train_loss, params, TrainConfig(opt=OptConfig(lr=1e-4, warmup_steps=0, state_bits=8)),
+                 plan=api.ctx.plan)
+    del params
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "init_peak": _peak_gb(), "cfg": cfg,
+           "params": sum(t.numel() for t in _float_leaves(tr.params)),
+           "moment_gb": sum(t.numel() * t.element_size() for k in ("m", "v") for t in _tensor_leaves(tr.opt_state[k]))
+           / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED)
+    out["losses"], out["secs"], out["opt_s"] = _timed_steps(tr, lambda i: make_batch(cfg, dcfg, i, device=dev), steps)
+    out["peak"] = _peak_gb()
+    del tr, api
+    _free()
+    return out
+
+
+def _train_qwen_full(dev) -> None:
+    """The deepest of TRAIN_QWEN_DEPTHS that fits, 3 steps; then 4 layers
+    one step with remat on and off (peak GB)."""
+    for n_layers in TRAIN_QWEN_DEPTHS:
+        try:
+            r = _train_qwen(dev, n_layers, TRAIN_QWEN_STEPS)
+            break
+        except torch.cuda.OutOfMemoryError:
+            total = torch.cuda.get_device_properties(0).total_memory / 1e9
+            log(f"train {ARCH}: {n_layers} layers do not fit in {total:.1f} GB; cut to the next depth")
+            _free()
+    else:
+        raise SystemExit(f"train {ARCH}: no depth of {TRAIN_QWEN_DEPTHS} fits")
+    n = r["params"]
+    ok = all(math.isfinite(x) for x in r["losses"])
+    log(f"train {ARCH} ({n_layers} of 36 layers, full width, {n / 1e9:.3f} B bf16 parameters, QAT ternary group "
+        f"{GROUP}, DFP-8 moments ({r['moment_gb']:.2f} GB), remat, batch {TRAIN_BATCH} x {TRAIN_SEQ}): losses "
+        f"{', '.join(f'{x:.4f}' for x in r['losses'])}; init {r['init_s']:.1f} s (peak {r['init_peak']:.2f} GB); "
+        f"{_steps_str(r['secs'], r['opt_s'])}; peak "
+        f"{r['peak']:.2f} GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} "
+        f"{'OK' if ok else 'FAIL'}")
+    log(f"train {ARCH}: float32 moments would hold {8 * n / 1e9:.1f} GB (m and v at 4 bytes each) beside "
+        f"{2 * n / 1e9:.1f} GB of bf16 params and {2 * n / 1e9:.1f} GB of gradients: "
+        f"{12 * n / 1e9:.1f} GB before a temporary, more than the card's 80 GB -- not run")
+    if not ok:
+        raise SystemExit(f"train {ARCH}: a loss is not finite: {r['losses']}")
+    peaks = {remat: _train_qwen(dev, 4, 1, remat=remat)["peak"] for remat in (True, False)}
+    log(f"train {ARCH} (4 layers, one step): peak {peaks[True]:.2f} GB with remat, {peaks[False]:.2f} GB without")
+
+
+def _tiny_lm(quant):
+    """The reference's benchmark LM (benchmarks/common.py ``tiny_lm``)."""
+    from repro_torch.configs.base import ArchConfig
+
+    return ArchConfig(name="bench-lm", family="dense", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                      vocab=512, head_dim=32, remat=False, dtype="float32", quant=quant)
+
+
+def _eval_lm(api, params, cfg, dcfg, dev, n_batches=4, seed=10_000) -> tuple:
+    """Loss and next-token top-1 on held-out batches (the benchmark's eval)."""
+    from repro_torch.training.data import make_batch
+
+    loss = top1 = 0.0
+    with torch.no_grad():
+        for i in range(n_batches):
+            batch = make_batch(cfg, dcfg, seed + i, device=dev)
+            loss += float(api.train_loss(params, batch))
+            pred = torch.argmax(api.forward(params, batch)[..., :cfg.vocab], dim=-1)
+            top1 += float((pred == batch["labels"]).to(torch.float32).mean())
+    return loss / n_batches, top1 / n_batches
+
+
+def _eval_ptq(params, dcfg, dev, fmt=None) -> tuple:
+    """PTQ ternary N64 of ``params`` (on a learned grid where the tree
+    carries one), served through the qdense kernels; the ttq format, which
+    has no kernel in either package, through the plain backend (``ref``)."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import build_model, quantize_and_plan
+
+    backend = "ref" if fmt == "ttq" else "auto"
+    cfg = _tiny_lm(QuantConfig(w_bits=2, group_size=GROUP, mode="ptq", backend=backend, fmt=fmt))
+    with torch.no_grad():
+        qparams, _, qapi = quantize_and_plan(build_model(cfg, device=dev), params)
+    return _eval_lm(qapi, qparams, cfg, dcfg, dev)
+
+
+def _recovery(dev) -> None:
+    """The paper's Sec. 4 direction on the benchmark's tiny LM: a float
+    baseline (100 steps), one-shot ternary N64 PTQ, then 60 steps of qat,
+    ttq and inq fine-tuning each (lr 1e-4, no weight decay); each must end
+    below PTQ's loss (the benchmark's --smoke check, direction only)."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import build_model
+    from repro_torch.quant.state import init_quant_state
+    from repro_torch.training import OptConfig, TrainConfig, Trainer
+    from repro_torch.training.data import DataConfig, make_batch
+
+    t0 = time.perf_counter()
+    cfg = _tiny_lm(QuantConfig(mode="fp", group_size=16))
+    api = build_model(cfg, device=dev)
+    dcfg = DataConfig(batch=16, seq=64, seed=SEED, structure=0.9)
+    batch_fn = lambda i: make_batch(cfg, dcfg, i, device=dev)  # noqa: E731
+    tr = Trainer(api.train_loss, api.init(torch.Generator(device=dev).manual_seed(SEED)),
+                 TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=20, decay_steps=100)))
+    tr.train(batch_fn, 100)
+    base = _detached(tr.params)
+    rows = {"fp": _eval_lm(api, base, cfg, dcfg, dev), "ptq": _eval_ptq(base, dcfg, dev)}
+    for method in ("qat", "ttq", "inq"):
+        qcfg = _tiny_lm(QuantConfig(w_bits=2, group_size=GROUP, mode="qat", fmt="ttq" if method == "ttq" else None))
+        qapi = build_model(qcfg, device=dev).compiled(base)
+        p0, qs = _detached(base), None  # each method fine-tunes its own copy of the baseline
+        if method != "qat":
+            p0, qs = init_quant_state(p0, qapi.ctx.plan, method, total_steps=60)
+        ft = Trainer(qapi.train_loss, p0, TrainConfig(opt=OptConfig(lr=1e-4, warmup_steps=0, decay_steps=60,
+                                                                    weight_decay=0.0)),
+                     plan=qapi.ctx.plan, quant_state=qs)
+        ft.train(lambda i: make_batch(cfg, dcfg, 500 + i, device=dev), 60)
+        rows[method] = _eval_ptq(_detached(ft.params), dcfg, dev, fmt="ttq" if method == "ttq" else None)
+    ok = all(rows[m][0] < rows["ptq"][0] for m in ("qat", "ttq", "inq"))
+    table = "; ".join(f"{m} loss {rows[m][0]:.4f} top-1 {rows[m][1]:.4f}"
+                      + (f" recovered {rows['ptq'][0] - rows[m][0]:+.4f} (reference "
+                         f"{RECOVERY_REFERENCE['ptq'] - RECOVERY_REFERENCE[m]:+.4f})" if m in ("qat", "ttq", "inq")
+                         else f" (reference loss {RECOVERY_REFERENCE[m]:.4f})")
+                      for m in ("fp", "ptq", "qat", "ttq", "inq"))
+    log(f"train recovery (the benchmark LM, 2 layers, d_model 128, vocab 512; fp 100 steps, ternary N{GROUP}, "
+        f"fine-tuning 60 steps at lr 1e-4; eval on 4 held-out batches of 16 x 64, PTQ through the qdense kernels, "
+        f"ttq's on the plain backend): "
+        f"{table}; every method below PTQ {'OK' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s; the "
+        f"reference's values from benchmarks/BENCH_finetune.json, 150 + 120 steps, not gated)")
+    if not ok:
+        raise SystemExit(f"train recovery: a retrained method does not beat one-shot PTQ: {rows}")
+
+
+def _detached(tree):
+    """A detached copy of every tensor of ``tree`` (a Trainer updates the
+    tree it is given in place)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def phase_train(dev) -> None:
+    """The training loop on the card: whisper-base's resume, qwen3-8b's
+    steps at full depth, the paper's recovery direction."""
+    t0 = time.perf_counter()
+    _train_whisper(dev)
+    _train_qwen_full(dev)
+    _recovery(dev)
+    log(f"train: phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 15. timings
 
 # ---------------------------------------------------------------------------
 class _Timer:
@@ -3571,6 +3866,7 @@ def main() -> None:
             launches[k] += v
         launches.update(own)
     timed("qat", phase_qat, dev)
+    timed("train", phase_train, dev)
     rows = timed("timings", phase_timings, dev)
     log(f"phase seconds {seconds}")
     line = _kernel_line(errs, launches, rows)

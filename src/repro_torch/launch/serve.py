@@ -66,6 +66,7 @@ from repro_torch.serving import (
     AdmissionConfig, FaultInjector, HealthConfig, Request, SamplerConfig, SchedulerConfig, ServingEngine,
     StagedEngine,
 )
+from repro_torch.tree import tree_leaves
 
 SEED = 0  # weights (torch.Generator) and prompts (numpy), as the reference's PRNGKey(0) / default_rng(0)
 PROMPT_TOKENS, NEW_TOKENS = 6, 8
@@ -90,22 +91,11 @@ class ServeRun:
     run_s: float
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def weight_mb(qparams, dtype: torch.dtype):
     """(MB the float weights would take in ``dtype``, MB they take packed)."""
     item = torch.empty((), dtype=dtype).element_size()
     fp = q = 0
-    for leaf in _leaves(qparams):
+    for leaf in tree_leaves(qparams):
         if isinstance(leaf, QTensor):
             fp += max(leaf.experts, 1) * int(np.prod(leaf.shape)) * item
             q += leaf.nbytes()

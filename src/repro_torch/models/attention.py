@@ -97,17 +97,23 @@ def _attend_chunked(q, k, v, q_pos, causal, window, chunk: int):
     l = torch.zeros_like(m)
     acc = torch.zeros((b, s, h, hd), dtype=torch.float32, device=q.device)
     for j0 in range(0, t, chunk):
-        ks, vs = k[:, j0:j0 + chunk], v[:, j0:j0 + chunk]
-        bias = _mask_bias(q_pos, torch.arange(j0, j0 + ks.shape[1], device=q.device), causal, window)
-        bias = bias[None] if bias.ndim == 2 else bias[:, None]
-        sc = torch.einsum("bshd,bthd->bhst", qf, ks.to(torch.float32)) + bias
-        m_new = torch.maximum(m, sc.amax(-1))
-        p = torch.exp(sc - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        acc = acc * corr.permute(0, 2, 1)[..., None] + torch.einsum("bhst,bthd->bshd", p, vs.to(torch.float32))
-        m = m_new
+        # a whole chunk is recomputed in the backward pass, as the reference's checkpointed scan body
+        m, l, acc = layers.maybe_remat(j0 + chunk <= t, _online_chunk, m, l, acc, qf, k[:, j0:j0 + chunk],
+                                       v[:, j0:j0 + chunk], q_pos, j0, causal, window)
     return acc / torch.clamp(l, min=1e-30).permute(0, 2, 1)[..., None]
+
+
+def _online_chunk(m, l, acc, qf, ks, vs, q_pos, j0: int, causal, window):
+    """One key chunk of the online softmax: the carry (m, l, acc) updated."""
+    bias = _mask_bias(q_pos, torch.arange(j0, j0 + ks.shape[1], device=qf.device), causal, window)
+    bias = bias[None] if bias.ndim == 2 else bias[:, None]
+    sc = torch.einsum("bshd,bthd->bhst", qf, ks.to(torch.float32)) + bias
+    m_new = torch.maximum(m, sc.amax(-1))
+    p = torch.exp(sc - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    acc = acc * corr.permute(0, 2, 1)[..., None] + torch.einsum("bhst,bthd->bshd", p, vs.to(torch.float32))
+    return m_new, l, acc
 
 
 def _win_arg(window, device) -> torch.Tensor:

@@ -100,11 +100,15 @@ def encode(params, frames: torch.Tensor, cfg, ctx: QuantCtx) -> torch.Tensor:
     x = frames + params["enc_pos"][None, :frames.shape[1]]
     positions = torch.arange(x.shape[1], device=x.device)
     for bp in params["enc_blocks"]:
-        a, _ = attn_lib.attention(bp["attn"], layers.layernorm(bp["ln1"], x), positions, cfg, ctx, "enc/attn",
-                                  causal=False, rope=False)
-        x = x + a
-        x = x + _gelu_mlp(bp["mlp"], layers.layernorm(bp["ln2"], x), "enc/mlp", ctx)
+        x = layers.maybe_remat(cfg.remat, _enc_block, bp, x, positions, cfg, ctx)
     return layers.layernorm(params["enc_norm"], x)
+
+
+def _enc_block(bp, x, positions, cfg, ctx: QuantCtx) -> torch.Tensor:
+    a, _ = attn_lib.attention(bp["attn"], layers.layernorm(bp["ln1"], x), positions, cfg, ctx, "enc/attn",
+                              causal=False, rope=False)
+    x = x + a
+    return x + _gelu_mlp(bp["mlp"], layers.layernorm(bp["ln2"], x), "enc/mlp", ctx)
 
 
 def _dec_block(bp, x, enc_out, positions, cfg, ctx, cache=None, cache_index=None):
@@ -140,8 +144,12 @@ def hidden(params, batch, cfg, ctx: QuantCtx) -> torch.Tensor:
     x = _dec_input(params, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
     for bp in params["dec_blocks"]:
-        x, _ = _dec_block(bp, x, enc_out, positions, cfg, ctx)
+        x = layers.maybe_remat(cfg.remat, _dec_block_x, bp, x, enc_out, positions, cfg, ctx)
     return layers.layernorm(params["dec_norm"], x)
+
+
+def _dec_block_x(bp, x, enc_out, positions, cfg, ctx: QuantCtx) -> torch.Tensor:
+    return _dec_block(bp, x, enc_out, positions, cfg, ctx)[0]
 
 
 def forward(params, batch, cfg, ctx: QuantCtx) -> torch.Tensor:

@@ -85,10 +85,10 @@ def hidden(params, tokens: torch.Tensor, cfg, ctx: QuantCtx, positions: Optional
         positions = torch.arange(x.shape[1], device=x.device)
     for j in range(n_super):
         for bp in params["mamba_stack"][j * p:(j + 1) * p]:
-            x = _mamba_block(bp, x, cfg, ctx)
+            x = layers.maybe_remat(cfg.remat, _mamba_block, bp, x, cfg, ctx)
         x, _ = _shared_block(_select_shared(params["shared"], j), x, positions, cfg, ctx)
     for bp in params.get("tail_stack", []):
-        x = _mamba_block(bp, x, cfg, ctx)
+        x = layers.maybe_remat(cfg.remat, _mamba_block, bp, x, cfg, ctx)
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

@@ -11,6 +11,10 @@ calibrated static activation exponent where the site has one.  A ctx
 carrying an ``observer`` records each site's input range first (the
 calibration pass).  ``lm_head_loss`` is the training loss: the lm_head and
 cross entropy in chunks of tokens, each recomputed in the backward pass.
+``remat`` is that recompute (the reference's ``jax.checkpoint``): every
+family wraps each block in it under ``cfg.remat``, and the inner loops the
+reference always checkpoints (attention's key chunks, the MoE token chunks,
+the SSM scan chunks) use it whatever the config says.
 
 Init functions take an explicit ``torch.Generator`` and ``device``, plus a
 ``leaf(path, key, tensor)`` hook every created parameter passes through, so
@@ -21,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import ste
 from repro_torch.core.quantizer import QTensor
@@ -182,6 +187,23 @@ def _vocab_mask(padded: int, vocab: int, device) -> Optional[torch.Tensor]:
                       torch.full((padded - vocab,), -1e30, dtype=torch.float32, device=device)])
 
 
+def remat(fn: Callable, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) where gradients are being
+    recorded, and a plain call otherwise (serving runs under
+    ``inference_mode``).  The recompute gives the same values: the loss and
+    gradients do not change, the peak memory falls.  ``fn`` is deterministic
+    (no RNG), so no RNG state is kept."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def maybe_remat(on: bool, fn: Callable, *args):
+    """``remat(fn, *args)`` where ``on`` (a config's ``remat``), else ``fn(*args)``."""
+    return remat(fn, *args) if on else fn(*args)
+
+
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
     """Mean cross entropy over (B, S, V) logits, the vocabulary's padding
     masked out."""
@@ -225,9 +247,7 @@ def lm_head_loss(head: Params, x: torch.Tensor, labels: torch.Tensor, vocab: int
     if n_chunks == 1:
         loss = torch.zeros((), dtype=torch.float32, device=x.device) + body(xt, lt)
     else:
-        from torch.utils.checkpoint import checkpoint
-
         loss = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(n_chunks):
-            loss = loss + checkpoint(body, xt[i * tc:(i + 1) * tc], lt[i * tc:(i + 1) * tc], use_reentrant=False)
+            loss = loss + remat(body, xt[i * tc:(i + 1) * tc], lt[i * tc:(i + 1) * tc])
     return loss / t

@@ -151,7 +151,9 @@ def moe_layer(p, x: torch.Tensor, path: str, cfg, ctx: QuantCtx) -> torch.Tensor
     while s % n_chunks:
         n_chunks -= 1
     sc = s // n_chunks
-    outs = [_dispatch_chunk(p, x[:, i * sc:(i + 1) * sc].reshape(b * sc, d), path, cfg, ctx).reshape(b, sc, d)
+    # several chunks: each recomputed in the backward pass, as the reference's checkpointed scan body
+    outs = [layers.maybe_remat(n_chunks > 1, _dispatch_chunk, p, x[:, i * sc:(i + 1) * sc].reshape(b * sc, d), path,
+                               cfg, ctx).reshape(b, sc, d)
             for i in range(n_chunks)]
     out = (outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)).to(x.dtype)
     if "residual_mlp" in p:

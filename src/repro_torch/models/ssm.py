@@ -4,11 +4,13 @@
 The reference runs the sequence recurrence as a chunked ``lax.scan`` with
 checkpointed chunks, which bounds training memory; here it is a plain loop
 over steps carrying the float32 state, with the reference's dtypes step for
-step.  The recurrence is elementwise (no TPU kernel reaches it), so it
-stays plain torch; the projections (``in_proj``, ``x_proj``, ``dt_proj``
-with its bias, ``bc_proj``, ``out_proj``) are ``dense`` sites, quantized
-through the qdense kernels under PTQ.  A, D, the conv taps and the dt
-biases stay in higher precision, as the reference's policy leaves them.
+step, in the reference's chunks (``_fit_chunk``), each recomputed in the
+backward pass (``layers.remat``).  The recurrence is elementwise (no TPU
+kernel reaches it), so it stays plain torch; the projections
+(``in_proj``, ``x_proj``, ``dt_proj`` with its bias, ``bc_proj``,
+``out_proj``) are ``dense`` sites, quantized through the qdense kernels
+under PTQ.  A, D, the conv taps and the dt biases stay in higher
+precision, as the reference's policy leaves them.
 """
 from __future__ import annotations
 
@@ -24,6 +26,17 @@ from repro_torch.quant.plan import QuantCtx
 
 def _dt_rank(cfg) -> int:
     return max(1, -(-cfg.d_model // 16))
+
+
+SCAN_CHUNK = 64  # the reference's scan chunk: steps recomputed together in the backward pass
+
+
+def _fit_chunk(s: int, want: int) -> int:
+    """Largest divisor of s that is <= want (the scan's chunk length)."""
+    c = min(s, want)
+    while s % c:
+        c -= 1
+    return c
 
 
 def d_inner(cfg) -> int:
@@ -88,6 +101,16 @@ def _conv_step(state_conv, xv, w, b):
 # ---------------------------------------------------------------------------
 # Mamba1
 # ---------------------------------------------------------------------------
+def _m1_chunk(h, dtf, xvf, bf, cf, a):
+    """Mamba1's recurrence over one chunk of steps: (final state, outputs (B, c, di))."""
+    ys = []
+    for t in range(dtf.shape[1]):
+        da = torch.exp(dtf[:, t, :, None] * a)
+        h = da * h + (dtf[:, t] * xvf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, cf[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
 def mamba1_seq(p, x: torch.Tensor, cfg, ctx: QuantCtx, path: str) -> torch.Tensor:
     """Full-sequence Mamba1: x (B, S, d) -> (B, S, d)."""
     b, s, _ = x.shape
@@ -101,11 +124,12 @@ def mamba1_seq(p, x: torch.Tensor, cfg, ctx: QuantCtx, path: str) -> torch.Tenso
     bf, cf = bmat.to(torch.float32), cmat.to(torch.float32)
     h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
     ys = []
-    for t in range(s):
-        da = torch.exp(dtf[:, t, :, None] * a)
-        h = da * h + (dtf[:, t] * xvf[:, t])[..., None] * bf[:, t, None, :]
-        ys.append(torch.einsum("bds,bs->bd", h, cf[:, t]))
-    y = (torch.stack(ys, dim=1) + xvf * p["D"]) * _silu(z.to(torch.float32))
+    c = _fit_chunk(s, SCAN_CHUNK)
+    for t0 in range(0, s, c):
+        sl = slice(t0, t0 + c)
+        h, yc = layers.remat(_m1_chunk, h, dtf[:, sl], xvf[:, sl], bf[:, sl], cf[:, sl], a)
+        ys.append(yc)
+    y = (torch.cat(ys, dim=1) + xvf * p["D"]) * _silu(z.to(torch.float32))
     return dense(p["out_proj"], y.to(x.dtype), f"{path}/out_proj", ctx)
 
 
@@ -131,6 +155,16 @@ def mamba1_step(p, x: torch.Tensor, state, cfg, ctx: QuantCtx, path: str):
 # ---------------------------------------------------------------------------
 # Mamba2 (SSD: a scalar decay per head)
 # ---------------------------------------------------------------------------
+def _m2_chunk(h, da, dtx, bf, cf):
+    """Mamba2's recurrence over one chunk of steps, the (hd x ds) outer-product
+    update formed a step at a time: (final state, outputs (B, c, H, hd))."""
+    ys = []
+    for t in range(da.shape[1]):
+        h = da[:, t, :, None, None] * h + dtx[:, t, ..., None] * bf[:, t, None, None, :]
+        ys.append(torch.einsum("bhds,bs->bhd", h, cf[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
 def mamba2_seq(p, x: torch.Tensor, cfg, ctx: QuantCtx, path: str) -> torch.Tensor:
     b, s, _ = x.shape
     di, ds = d_inner(cfg), cfg.ssm_state
@@ -147,10 +181,12 @@ def mamba2_seq(p, x: torch.Tensor, cfg, ctx: QuantCtx, path: str) -> torch.Tenso
     bf, cf = bmat.to(torch.float32), cmat.to(torch.float32)
     h = torch.zeros((b, nh, hd, ds), dtype=torch.float32, device=x.device)
     ys = []
-    for t in range(s):  # the (hd x ds) outer-product update is formed a step at a time
-        h = da[:, t, :, None, None] * h + dtx[:, t, ..., None] * bf[:, t, None, None, :]
-        ys.append(torch.einsum("bhds,bs->bhd", h, cf[:, t]))
-    y = torch.stack(ys, dim=1).reshape(b, s, di)
+    c = _fit_chunk(s, SCAN_CHUNK)
+    for t0 in range(0, s, c):
+        sl = slice(t0, t0 + c)
+        h, yc = layers.remat(_m2_chunk, h, da[:, sl], dtx[:, sl], bf[:, sl], cf[:, sl])
+        ys.append(yc)
+    y = torch.cat(ys, dim=1).reshape(b, s, di)
     y = y + xv.to(torch.float32) * p["D"]
     y = layers.rmsnorm(p["norm"], y.to(x.dtype), cfg.norm_eps)
     y = y * _silu(z)

@@ -30,10 +30,14 @@ def init_ssm_lm(gen: torch.Generator, cfg, device, leaf=layers.keep) -> Dict[str
     }
 
 
+def _block(bp, x, cfg, ctx: QuantCtx) -> torch.Tensor:
+    return x + ssm.mamba1_seq(bp["mamba"], layers.rmsnorm(bp["norm"], x, cfg.norm_eps), cfg, ctx, "mamba")
+
+
 def hidden(params, tokens: torch.Tensor, cfg, ctx: QuantCtx) -> torch.Tensor:
     x = layers.embed(params["embed"], tokens)
     for bp in params["blocks"]:
-        x = x + ssm.mamba1_seq(bp["mamba"], layers.rmsnorm(bp["norm"], x, cfg.norm_eps), cfg, ctx, "mamba")
+        x = layers.maybe_remat(cfg.remat, _block, bp, x, cfg, ctx)
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

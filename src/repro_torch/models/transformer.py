@@ -5,7 +5,8 @@ positions are (3, B, S) and ``extra_embeds`` (patch embeddings) are
 prepended after the token embedding (``models/vlm.py``).
 
 The reference stacks layers on a leading axis and scans; the port keeps
-``params["blocks"]`` as a list of per-layer dicts and loops in Python.  The
+``params["blocks"]`` as a list of per-layer dicts and loops in Python,
+each block recomputed in the backward pass under ``cfg.remat``.  The
 KV cache keeps the reference's stacked (L, B, T, ...) leaves; layer i
 works on the contiguous view ``cache[n][i]``, written in place.
 
@@ -79,6 +80,10 @@ def _block_apply(bp, x, positions, cfg, ctx: QuantCtx, window=None, cache=None, 
     return x + layers.mlp(bp["mlp"], h, "blocks/mlp", ctx), cache
 
 
+def _block_x(bp, x, positions, cfg, ctx: QuantCtx, window):
+    return _block_apply(bp, x, positions, cfg, ctx, window)[0]
+
+
 def _embed(params, tokens, extra_embeds=None) -> torch.Tensor:
     """Token embeddings, with ``extra_embeds`` (B, n_vis, d) prepended."""
     x = layers.embed(params["embed"], tokens)
@@ -94,7 +99,7 @@ def hidden(params, tokens: torch.Tensor, cfg, ctx: QuantCtx, positions: Optional
         positions = torch.arange(x.shape[1], device=x.device)
     win = window_schedule(cfg, x.shape[1])
     for i, bp in enumerate(params["blocks"]):
-        x, _ = _block_apply(bp, x, positions, cfg, ctx, None if win is None else int(win[i]))
+        x = layers.maybe_remat(cfg.remat, _block_x, bp, x, positions, cfg, ctx, None if win is None else int(win[i]))
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

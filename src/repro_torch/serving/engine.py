@@ -71,6 +71,7 @@ from repro_torch.serving.scheduler import (
     AdmissionConfig, LatencyStats, PrefillTask, SchedulerConfig, admission_decision, chunk_plan, degraded_chunk,
     estimate_ttft_ms, next_action,
 )
+from repro_torch.tree import tree_map
 
 # terminal request statuses: the request has left the engine for good
 TERMINAL_STATUSES = ("finished", "expired", "shed", "rejected", "failed", "cancelled")
@@ -107,11 +108,6 @@ class Request:
     @property
     def terminal(self) -> bool:
         return self.status in TERMINAL_STATUSES
-
-
-def _tree_map(fn, tree):
-    """``fn`` over the tensors of a (nested) cache dict."""
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 class _EngineBase:
@@ -442,7 +438,7 @@ class _EngineBase:
         cache without float leaves, kv_int8, gets a fresh row, as in the
         reference)."""
         if self._poison_prefix is None:
-            self._poison_prefix = _tree_map(
+            self._poison_prefix = tree_map(
                 lambda leaf: torch.full_like(leaf, float("nan")) if leaf.is_floating_point() else leaf,
                 self.api.init_cache(1, self.max_len))
         self.api.insert(self.cache, self._poison_prefix, s)

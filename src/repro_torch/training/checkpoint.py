@@ -33,10 +33,15 @@ What the port adds to keep the bytes the reference's:
 
 Payload reads retry ``OSError`` with exponential backoff (``_read_retry``;
 ``io_fault_hook`` injects flakes); integrity failures are never retried.
+Training checkpoints: ``None`` leaves (an optimizer moment a leaf does not
+have) are no leaves, as in the reference's trees, so ``{"params", "opt"}``
+with its ``{"q", "e"}`` DFP-8 moments is written under the reference's
+paths and either package restores the other's; ``quant_state`` (a TTQ /
+INQ schedule record) rides in the manifest (``load_quant_state``).
+
 Sharded payloads (``payload.shard{k}.npy`` with their ``index``) written by
 the reference on a mesh are joined on the host.  Writing them, the mesh-aware
-restore and ``tree_shapes`` wait for ROADMAP Queue A step 10;
-``load_quant_state`` for step 9.
+restore and ``tree_shapes`` wait for ROADMAP Queue A step 10.
 """
 from __future__ import annotations
 
@@ -132,7 +137,9 @@ def _stack(leaf) -> Any:
 def _flat_with_paths(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) in the reference's flatten order (sorted dict keys).  A
     QTensor is one leaf; a list of per-layer trees becomes ``Stacked``
-    leaves under its own path."""
+    leaves under its own path; ``None`` is no leaf."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         out = []
         for key in sorted(tree):
@@ -331,11 +338,14 @@ def _plan_json(plan: Any) -> Optional[str]:
 # ---------------------------------------------------------------------------
 # Save.
 # ---------------------------------------------------------------------------
-def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None, plan: Any = None) -> str:
+def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None, plan: Any = None,
+         quant_state: Optional[Dict] = None) -> str:
     """Atomically persist ``tree`` (tensors, QTensors, lists of per-layer
     trees) at ``step``; returns the step directory.  Plain leaves go to the
     manifest's ``arrays``, codec leaves to ``nodes``; ``plan`` (a
-    ``QuantPlan`` or its JSON) to ``quant_plan.json``."""
+    ``QuantPlan`` or its JSON) to ``quant_plan.json``; ``quant_state`` (a
+    JSON-safe schedule record, ``QuantState.to_meta()``) to the manifest's
+    ``quant_state`` section."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = step_dir(ckpt_dir, step)
     tmp = final + ".tmp"
@@ -343,7 +353,7 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None, plan
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest: Dict[str, Any] = {
-        "version": 2, "step": step, "arrays": {}, "nodes": {}, "quant_plan": None, "quant_state": None,
+        "version": 2, "step": step, "arrays": {}, "nodes": {}, "quant_plan": None, "quant_state": quant_state,
         "extra": extra or {},
     }
     for name, leaf in _flat_with_paths(tree):
@@ -511,6 +521,8 @@ def restore_tree(d: str, manifest: Optional[Dict] = None, device=None) -> Dict[s
 def _fill(node, path: str, flat: Dict[str, Any], index: Optional[int] = None):
     """``node``'s structure over the restored values of ``flat``; a list
     takes layer i of each stacked value."""
+    if node is None:
+        return None
     if isinstance(node, dict):
         return {k: _fill(v, f"{path}/{k}" if path else str(k), flat, index) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
@@ -557,6 +569,17 @@ def load_plan(d: str, manifest: Optional[Dict] = None) -> Optional[QuantPlan]:
         return None
     with open(os.path.join(d, qp["file"])) as f:
         return QuantPlan.from_json(f.read())
+
+
+def load_quant_state(d: str, manifest: Optional[Dict] = None) -> Optional[Dict]:
+    """The step's quantization-schedule record (the manifest's
+    ``quant_state``; None if it carries none), as the raw dict:
+    ``QuantState.from_meta`` rebuilds it."""
+    if manifest is None:
+        manifest = _verify(d)
+    if manifest is None:
+        raise IOError(f"checkpoint {d} missing or corrupt")
+    return manifest.get("quant_state")
 
 
 def load_manifest(d: str) -> Dict[str, Any]:

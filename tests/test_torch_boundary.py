@@ -38,7 +38,8 @@ def test_package_imports_with_jax_blocked():
         "import repro_torch, repro_torch.models, repro_torch.serving, repro_torch.convert\n"
         "import repro_torch.kernels.flash_decode, repro_torch.kernels.int8_matmul\n"
         "import repro_torch.training.checkpoint, repro_torch.core.calibration, repro_torch.core.stats\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.training.optimizer, repro_torch.training.trainer, repro_torch.training.data\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

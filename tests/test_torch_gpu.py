@@ -1001,3 +1001,68 @@ def test_qat_straight_through_gradient_on_the_card(dev):
     assert torch.equal(w.grad, wq.grad)
     cpu = fake_quantize_weights(w.detach().cpu(), 2, 64)
     assert torch.equal(wq.detach().cpu(), cpu)
+
+
+def test_adamw_step_on_the_card_matches_the_cpu(dev):
+    """One AdamW step with DFP-8 moments on the card against the same step on
+    the CPU, from the same state: every mantissa and exponent of m and v
+    equal (the update's fmas are emulated in float64 on both devices),
+    the parameters within PARAM_TOL of tests/test_torch_optimizer.py."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator().manual_seed(3)
+
+    def tree(scale):
+        return {"blocks": [{"w": torch.randn(64, 96, generator=gen) * scale} for _ in range(2)],
+                "embed": torch.randn(300, 96, generator=gen) * scale, "norm": torch.randn(96, generator=gen) * scale}
+
+    params, grads = tree(1.0), [tree(1e-2) for _ in range(3)]
+    cfg = opt.OptConfig(lr=1e-2, warmup_steps=0, state_bits=8)
+
+    def run(device):
+        # copies: the step updates its params in place
+        p = tree_map(lambda t: t.to(device, copy=True), params)
+        s = opt.init_state(p, cfg)
+        for g in grads:
+            p, s, _ = opt.apply_updates(p, tree_map(lambda t: t.to(device), g), s, cfg)
+        return p, s
+
+    (pc, sc), (pg, sg) = run("cpu"), run(dev)
+    for key in ("m", "v"):
+        for name in ("embed", "norm"):
+            for part in ("q", "e"):
+                assert torch.equal(sg[key][name][part].cpu(), sc[key][name][part]), (key, name, part)
+        for i in range(2):
+            assert torch.equal(sg[key]["blocks"][i]["w"]["q"].cpu(), sc[key]["blocks"][i]["w"]["q"])
+    for name in ("embed", "norm"):
+        want = pc[name]
+        assert bool(((pg[name].cpu() - want).abs() <= 2.0**-21 * (want.abs() + 1e-2)).all()), name
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "whisper-base", "falcon-mamba-7b", "zamba2-7b"])
+def test_remat_step_matches_the_step_without_remat(dev, arch):
+    """cfg.remat recomputes each block in the backward pass: the loss and
+    every gradient equal the run without it, bit for bit, on the card."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import build_model, make_smoke_batch
+    from repro_torch.tree import tree_leaves
+
+    out = []
+    for remat in (False, True):
+        qc = dict(w_bits=8, group_size=4) if arch == "falcon-mamba-7b" else dict(w_bits=2, group_size=16)  # C15
+        cfg = dataclasses.replace(configs.get_smoke(arch, configs.QuantConfig(mode="qat", **qc)), remat=remat)
+        api = build_model(cfg, device=dev)
+        params = api.init(torch.Generator(device=dev).manual_seed(0))
+        api = api.compiled(params)
+        leaves = [t for t in tree_leaves(params) if isinstance(t, torch.Tensor) and t.is_floating_point()]
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = make_smoke_batch(torch.Generator(device=dev).manual_seed(1), cfg, 2, 16)
+        loss = api.train_loss(params, batch)
+        out.append((loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)))
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l0, l1)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(g0, g1))

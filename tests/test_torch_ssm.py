@@ -66,10 +66,11 @@ def _block(arch, seed):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_mamba_seq_and_step_match_reference(arch):
-    """The sequence form (the reference: chunked lax.scan with chunks of
-    8 over 24 steps) and 24 decode steps from a zero state: outputs and
-    the float32 states at 1e-5."""
+def test_mamba_seq_and_step_match_reference(arch, monkeypatch):
+    """The sequence form (both packages' scans in chunks of 8 over 24
+    steps: the state carried across chunks) and 24 decode steps from a
+    zero state: outputs and the float32 states at 1e-5."""
+    monkeypatch.setattr(tssm, "SCAN_CHUNK", 8)
     cfg, jp, tp = _block(arch, 1)
     x = (np.random.default_rng(2).normal(size=(2, 24, cfg.d_model)) * 0.5).astype(np.float32)
     jseq, tseq = SEQ[cfg.ssm_version]
