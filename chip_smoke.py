@@ -252,7 +252,14 @@ Phases, in order; any failure exits non-zero:
                  x_proj and dt_proj (torch.addmm with the bias), M = 4;
                  the encdec phase's shapes: wq (K 512) at M = 4, 1500 and
                  6000, the int8 lm_head at N 51968, M = 4, flash_attend
-                 kv_int8 at hd 64 (decode, B 4, T 448)
+                 kv_int8 at hd 64 (decode, B 4, T 448); the int8 route
+                 (uses_int8_loop) on lm_head and mx's seven layer sites,
+                 the int8 loop against the GEMV on the same call, logged
+ 16. lm_heads -- every family's int8 lm_head at its published widths on
+                 the int8 loop (csrc/qmm_gemv8.cuh): fused at M = 1, 4, 8
+                 (bf16 dynamic exponent, float32 static, bf16 bias + silu)
+                 and packed, 0 ulps (arctic's and zamba2's plans split
+                 their k-tiles); the rows no earlier phase times at M = 4
 
 The traced ticks and chunks log device busy time, kernels per call and the
 qdense GEMV's device time and launches per tick.
@@ -639,9 +646,10 @@ def _parity_ragged_flash(dev, gen, errs) -> list:
 def _parity_decode(dev, gen, errs) -> list:
     """Decode at the staged tick's shape with every row at valid = 1 and
     every row at full T, every format: within 5e-5 of plain, two identical
-    calls bit-identical, and one CUDA launch a call (profiler trace; a
-    trace that holds no device event at all, which CUPTI gives now and then
-    on a call that ran, is taken again, up to three traces)."""
+    calls bit-identical, and one CUDA launch a call (profiler trace, and
+    the wrapper's count of its launches; a trace that holds no device event
+    at all, which CUPTI gives now and then -- at times three in a row -- on
+    a call that ran, is taken again, up to ten traces)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -658,10 +666,12 @@ def _parity_decode(dev, gen, errs) -> list:
             args = _flash_args(_flash_case(fmt, fd, gen, dev, s=1, starts=[fill - 1] * fd["b"], valid=valid))
             first = flash_attend(*args, fmt=fmt)
             torch.cuda.synchronize()
-            for trace in range(1, 4):  # a trace that holds no device event missed the call: trace it again
+            for trace in range(1, 11):  # a trace that holds no device event missed the call: trace it again
+                before = flash_attend.launches
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     second = flash_attend(*args, fmt=fmt)
                     torch.cuda.synchronize()
+                counted = flash_attend.launches - before
                 n_launch = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
                 if n_launch:
                     break
@@ -670,13 +680,13 @@ def _parity_decode(dev, gen, errs) -> list:
             err = float((first - want).abs().max())
             same = bool(torch.equal(first.view(torch.int32), second.view(torch.int32)))
             errs[f"flash_attend_{SHORT[fmt]}"] = max(errs[f"flash_attend_{SHORT[fmt]}"], err)
-            ok = bool(torch.isfinite(first).all()) and err <= 5e-5 and same and n_launch == 1
+            ok = bool(torch.isfinite(first).all()) and err <= 5e-5 and same and n_launch == 1 and counted == 1
             log(f"parity flash {fmt} decode B={fd['b']} T={fd['t']} valid={fill}: max_abs_err={err:.3e} (atol 5e-5), "
-                f"two calls bit-identical {same}, CUDA launches a call {n_launch} (want 1; trace {trace}) "
-                f"{'OK' if ok else 'FAIL'}")
+                f"two calls bit-identical {same}, CUDA launches a call {n_launch} (want 1; trace {trace}), "
+                f"counted {counted} {'OK' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"flash {fmt} decode valid={fill}: max_abs_err {err:.3e}, bit-identical {same}, "
-                                f"launches {n_launch} in trace {trace}")
+                                f"launches {n_launch} in trace {trace}, counted {counted}")
     return failures
 
 
@@ -1658,6 +1668,8 @@ ATTN_HD240 = [(2, 64, 64, 240), (3, 64, 128, 240), (64, 1024, 1024, 240)]  # las
 FAMILY_ROWS = {  # JSON row -> what the families phase counts for its launches
     "fused_qmm_ternary_ragged": ("gemv", 3840), "fused_qmm_ternary_ragged_prefill": ("tile", 3840),
     "fused_qmm_ternary_k49152": ("gemv", 49152),
+    "fused_qmm_int8_lm_gemma3": ("int8 loop", 3840), "fused_qmm_int8_lm_qwen110": ("int8 loop", 8192),
+    "fused_qmm_int8_lm_phi4": ("int8 loop", 3072),
     "flash_attend_int8_hd240": ("kv_int8/decode", 240), "flash_attend_int8_hd240_prefill": ("kv_int8/prefill", 240),
     "flash_attention_hd240": ("flash_attention", 240),
 }
@@ -1694,14 +1706,14 @@ def _family_launches() -> _KeyedLaunches:
     """Launches by route and K (qdense) or by mode and head_dim (flash),
     counted where the wrappers plan a launch: fused_qmm / packed_qmm plan
     the GEMV (``gemv_plan``), the tile (``tile_plan``) or the int8 loop
-    (``rows_per_block``) right before they launch it, flash_attend its
+    (``int8_loop_plan``) right before they launch it, flash_attend its
     call (``launch_plan``).  Installed for the families phase only."""
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import fused_qmm as fq
     from repro_torch.kernels import packed_qmm as pq
 
     wraps = [(mod, name, lambda a, route=route: (route, a[1])) for mod in (fq, pq)
-             for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"), ("rows_per_block", "int8 loop"))]
+             for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"), ("int8_loop_plan", "int8 loop"))]
     wraps.append((fp, "launch_plan", lambda a: (f"{a[0]}/{'decode' if a[2] == 1 else 'prefill'}", a[6])))
     return _KeyedLaunches(wraps)
 
@@ -2059,6 +2071,8 @@ MOE_ROWS = {
     "packed_qmm_ternary_experts_grok_gate_routed5": ("packed", 8, 6144, 32768, "m<=8"),
     "packed_qmm_ternary_experts_arctic_gate_routed8": ("packed", 128, 7168, 4864, "m<=8"),
     "fused_qmm_int8_router": ("fused", 0, 6144, 8, "m<=8"),
+    "fused_qmm_int8_lm_grok": ("fused", 0, 6144, 131072, "m<=8"),
+    "fused_qmm_int8_lm_arctic": ("fused", 0, 7168, 32000, "m<=8"),
     "quantize_rows_grok_gate_c8": ("quantize", 64, 6144, "torch.bfloat16", "m>8"),
     "quantize_rows_grok_down_c8": ("quantize", 64, 32768, "torch.float32", "m>8"),
     "quantize_rows_arctic_gate_c8": ("quantize", 1024, 7168, "torch.bfloat16", "m>8"),
@@ -2448,21 +2462,22 @@ VLM_SSM_ROWS = {  # JSON row -> what the phase counts for its launches: (route, 
     "fused_qmm_ternary_k29568": ("gemv", 29568, 8192),
     "fused_qmm_ternary_x_proj": ("gemv", 8192, 288),
     "fused_qmm_ternary_dt_proj": ("gemv", 256, 8192),
+    "fused_qmm_int8_lm_falcon": ("int8 loop", 4096, 65024), "fused_qmm_int8_lm_zamba2": ("int8 loop", 3584, 32000),
     "flash_attend_int8_hd112": ("kv_int8/decode", 112),
 }
 
 
 def _vlm_ssm_launches() -> _KeyedLaunches:
     """Launches by route, K and N (qdense: where fused_qmm / packed_qmm
-    plan the GEMV or the tile right before launching it) or by mode and
-    head_dim (flash_attend's ``launch_plan``).  Installed for the phase's
-    serving runs only."""
+    plan the GEMV, the tile or the int8 loop right before launching it) or
+    by mode and head_dim (flash_attend's ``launch_plan``).  Installed for
+    the phase's serving runs only."""
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import fused_qmm as fq
     from repro_torch.kernels import packed_qmm as pq
 
     wraps = [(mod, name, lambda a, route=route: (route, a[1], a[2])) for mod in (fq, pq)
-             for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"))]
+             for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"), ("int8_loop_plan", "int8 loop"))]
     wraps.append((fp, "launch_plan", lambda a: (f"{a[0]}/{'decode' if a[2] == 1 else 'prefill'}", a[6])))
     return _KeyedLaunches(wraps)
 
@@ -2805,7 +2820,7 @@ def _encdec_launches() -> _KeyedLaunches:
 
     wraps = [(fq, name, lambda a, route=route: (route, a[0], a[1], a[2]))
              for name, route in (("gemv_plan", "gemv"), ("tile_plan", "tile"))]
-    wraps.append((fq, "rows_per_block", lambda a: ("int8 loop", a[1])))
+    wraps.append((fq, "int8_loop_plan", lambda a: ("int8 loop", a[1])))
     wraps.append((fp, "launch_plan", lambda a: (f"{a[0]}/{'decode' if a[2] == 1 else 'prefill'}", a[6])))
     return _KeyedLaunches(wraps)
 
@@ -3710,7 +3725,8 @@ def _time_gemv_choices(timer, gen, dev) -> None:
     """The GEMV's two shape choices (kernels/fused_qmm.py), logged at M = 4:
     the k-split cap (GEMV_MAX_SPLITS, the cluster size) on wk and wq
     against a cap of 8; and the int8 routing (uses_int8_loop) on lm_head
-    and mx's gate against the other int8 kernel on the same call."""
+    and each of the mx layer's seven sites against the other int8 kernel
+    on the same call."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_qmm as fq
     from repro_torch.kernels import packed_qmm as pq
@@ -3731,14 +3747,15 @@ def _time_gemv_choices(timer, gen, dev) -> None:
             f"{ms[cap]:.4f} ms; cap 8 ({blocks[8]} blocks) {ms[8]:.4f} ms")
         del qt
     route = fq.uses_int8_loop
-    for name, k, n, fmt in (("lm_head", 4096, 152064, "int8"), ("gate", 4096, 12288, "mx")):
+    sites = [("lm_head", 4096, 152064, "int8")] + [(name, k, n, "mx") for name, k, n, _, _ in LAYER_SITES]
+    for name, k, n, fmt in sites:
         qt = _qsite(k, n, fmt, gen, dev)
         x = (torch.randn((M_ROWS, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
         fn = lambda: _entry(fmt)(x, qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size)  # noqa: E731
-        chosen = "int8 loop" if route("int8", n, _build.sm_count(dev)) else "GEMV"
+        chosen = "int8 loop" if route("int8", M_ROWS, k, n, qt.group_size, 512, _build.sm_count(dev)) else "GEMV"
         ms = {chosen: timer(fn)}
         other = "GEMV" if chosen == "int8 loop" else "int8 loop"
-        fq.uses_int8_loop = pq.uses_int8_loop = lambda d, nn, sms=132, o=other: d == "int8" and o == "int8 loop"
+        fq.uses_int8_loop = pq.uses_int8_loop = lambda d, *a, o=other, **kw: d == "int8" and o == "int8 loop"
         try:
             ms[other] = timer(fn)
         finally:
@@ -3813,6 +3830,84 @@ def _time_flash(timer, fmt, shape, case, what) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# 16. lm_heads: the int8 loop at every family's lm_head
+# ---------------------------------------------------------------------------
+# (family, K, N, JSON row): each family's int8 lm_head at its published widths (vocab padded to 256); the rows of
+# qwen3-8b and whisper-base are timed with their phases (fused_qmm_int8, fused_qmm_int8_n51968), qwen2-vl-72b's
+# shape is qwen1.5-110b's
+LM_HEAD_SHAPES = [
+    ("qwen3-8b", 4096, 152064, "fused_qmm_int8"), ("phi4-mini-3.8b", 3072, 200192, "fused_qmm_int8_lm_phi4"),
+    ("gemma3-12b", 3840, 262144, "fused_qmm_int8_lm_gemma3"), ("qwen1.5-110b", 8192, 152064, "fused_qmm_int8_lm_qwen110"),
+    ("grok-1-314b", 6144, 131072, "fused_qmm_int8_lm_grok"), ("arctic-480b", 7168, 32000, "fused_qmm_int8_lm_arctic"),
+    ("falcon-mamba-7b", 4096, 65024, "fused_qmm_int8_lm_falcon"), ("zamba2-7b", 3584, 32000, "fused_qmm_int8_lm_zamba2"),
+    ("whisper-base", 512, 51968, "fused_qmm_int8_n51968"),
+]
+LM_HEAD_ROWS = (1, 4, 8)
+LM_HEAD_TIMED = ("fused_qmm_int8", "fused_qmm_int8_n51968")  # rows timed by earlier phases
+
+
+def phase_lm_heads(dev, errs) -> dict:
+    """Every family's int8 lm_head at its published widths on the int8 loop
+    (weights quantized on the card): fused at M = 1, 4, 8 (bf16 with the
+    dynamic exponent, float32 with a static one, bf16 with a bias and
+    silu), packed over quantize_rows' rows at each M, both 0 ulps against
+    the plain versions (arctic's and zamba2's plans split their k-tiles);
+    then, for the rows no earlier phase times, the kernel at M = 4 beside
+    its bound, the plain version and torch.matmul.  Returns those rows."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_qmm import fused_qmm_ref, int8_loop_plan, uses_int8_loop
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.quant.formats import dequantize_weights, get_format
+
+    t0 = time.perf_counter()
+    timer = _Timer(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    sms = _build.sm_count(dev)
+    rows, failures = {}, []
+    for family, k, n, row in LM_HEAD_SHAPES:
+        qt = _qsite(k, n, "int8", gen, dev)
+        bias = torch.randn((n,), generator=gen, device=dev) * 0.1
+        cases = [(torch.bfloat16, dict()), (torch.float32, dict(act_exponent=-4)),
+                 (torch.bfloat16, dict(bias=bias, act="silu"))]
+        worst = 0
+        for i, m in enumerate(LM_HEAD_ROWS):
+            if not uses_int8_loop("int8", m, k, n, qt.group_size, 512, sms):
+                failures.append(f"{family} lm_head M={m} is not on the int8 loop")
+            dtype, kw = cases[i]
+            x = _rows(m, k, gen, dev, dtype)
+            kw = dict(group=qt.group_size, **kw)
+            got = _entry("int8")(x, qt.packed, qt.scale_m, qt.scale_e, **kw)
+            want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode="int8", **kw)
+            xq, _ = quantize_rows(x.to(torch.bfloat16))
+            got_p = get_format("int8").kernel(xq, qt.packed, qt.scale_m, group=qt.group_size)
+            want_p = packed_qmm_ref(xq, qt.packed, qt.scale_m, decode="int8", group=qt.group_size)
+            torch.cuda.synchronize()
+            ulps, ulps_p = _ulps(got, want), _ulps(got_p, want_p)
+            errs[row] = max(errs.get(row, 0.0), float((got - want).abs().max()))
+            worst = max(worst, ulps, ulps_p)
+            if ulps or ulps_p or not bool(torch.isfinite(got).all()):
+                failures.append(f"{family} lm_head M={m}")
+            del x, xq, got, want, got_p, want_p
+        plan = int8_loop_plan(M_ROWS, k, n, qt.group_size, 512, sms)
+        log(f"parity lm_head {family} K={k} N={n} int8 M={LM_HEAD_ROWS} fused and packed (the int8 loop: "
+            f"{plan['splits']} split(s), {plan['warps']} warps): max ulps {worst} {'OK' if not worst else 'FAIL'}")
+        if row not in LM_HEAD_TIMED:
+            w_bf16 = dequantize_weights(qt).to(torch.bfloat16)
+            rows[row] = r = _time_site(timer, qt, w_bf16, "int8", "fused", M_ROWS, None, gen, dev)
+            log(f"time {row} ({family} lm_head: K={k} N={n} int8 M={M_ROWS}): kernel {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms (by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, torch.matmul bf16 "
+                f"{r['library_ms']:.4f} ms")
+            del w_bf16
+        del qt, bias
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"lm_heads parity failed: {failures}")
+    log(f"lm_heads: phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it replaces); first match wins
     "fused_qmm_int8_prefill": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/int8_matmul.py:53"),
     "fused_qmm_ternary": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/ternary_matmul.py:63"),
@@ -3868,6 +3963,7 @@ def main() -> None:
     timed("qat", phase_qat, dev)
     timed("train", phase_train, dev)
     rows = timed("timings", phase_timings, dev)
+    rows.update(timed("lm_heads", phase_lm_heads, dev, errs))
     log(f"phase seconds {seconds}")
     line = _kernel_line(errs, launches, rows)
     if not all(math.isfinite(v) for k in line["kernels"] for v in k.values() if isinstance(v, float)):
@@ -3885,7 +3981,9 @@ def main() -> None:
         f"the router site or a decode tick's capacity buffer, their launches those of their shape in the moe phase's "
         f"serving runs; the vlm_ssm rows (*_k29568, *_x_proj, *_dt_proj, *_hd112) are single sites or calls, their "
         f"launches those of their shape in the vlm_ssm phase's serving runs; the encdec rows (*_k512*, *_n51968, "
-        f"*_hd64) are single sites or calls, their launches those of their shape in the encdec phase's serving runs")
+        f"*_hd64) are single sites or calls, their launches those of their shape in the encdec phase's serving runs; "
+        f"the lm_head rows (fused_qmm_int8_lm_*: the int8 loop) are each family's int8 lm_head at M={M_ROWS}, their "
+        f"launches those of their shape in the families, moe and vlm_ssm phases' serving runs")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

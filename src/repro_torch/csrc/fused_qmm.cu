@@ -12,9 +12,10 @@
 // site's epilogue.
 //
 // M <= 8: one launch of the GEMV -- qmm_gemv.cuh for the 2- and 4-bit
-// decodes (fused_qmm_launch), qmm_gemv8.cuh for int8 (fused_qmm_int8_launch)
-// -- with the rows' exponents and int8 mantissas in each block's prologue
-// and this site's epilogue.
+// decodes and the int8 sites the int8 loop does not take (fused_qmm_launch),
+// the int8 loop qmm_gemv8.cuh (fused_qmm_int8_launch) -- with the rows'
+// exponents and int8 mantissas in each block's prologue and this site's
+// epilogue.
 #include "qmm_gemv.cuh"
 #include "qmm_gemv8.cuh"
 #include "qmm_mma.cuh"
@@ -54,17 +55,22 @@ extern "C" int fused_qmm_launch(int x_is_bf16, int decode, const void* x, const 
                                     : qmm::gemv::launch_any<float>(decode, a, grid_x, smem, s));
 }
 
-// M <= 8, the int8 decode: grid (ceil(N / 128), ceil(M / rpb)), rpb rows a block.
+// M <= 8, the int8 loop over the wrapper's plan (fused_qmm.py::int8_loop_plan):
+// grid (grid_x, ceil(M / rows)) of `warps` warps, `smem` bytes (the kernel
+// refuses another size); ws, counters: the k-splits' scratch, unused when
+// splits == 1.
 extern "C" int fused_qmm_int8_launch(int x_is_bf16, const void* x, const void* w, const void* scale_m,
-                                     const void* scale_e, const void* bias, void* out, int M, int K, int N, int group,
-                                     int bk, int rpb, int act, int act_bits, int has_static, int static_e,
-                                     void* stream) {
+                                     const void* scale_e, const void* bias, void* out, void* ws, void* counters,
+                                     int M, int K, int N, int group, int bk, int rows, int splits, int tps,
+                                     int warps, int grid_x, int act, int act_bits, int has_static, int static_e,
+                                     size_t smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      x_is_bf16 ? qmm::gemv8::launch<__nv_bfloat16>(x, w, scale_m, scale_e, bias, out, M, K, N, group, bk, rpb, act,
-                                                    act_bits, has_static, static_e, s)
-                : qmm::gemv8::launch<float>(x, w, scale_m, scale_e, bias, out, M, K, N, group, bk, rpb, act, act_bits,
-                                            has_static, static_e, s));
+  const qmm::gemv8::Args a{x, static_cast<const int8_t*>(w), static_cast<const int8_t*>(scale_m),
+                           static_cast<const int*>(scale_e), static_cast<const float*>(bias),
+                           static_cast<float*>(out), static_cast<float*>(ws), static_cast<int*>(counters),
+                           M, K, N, group, bk, act, act_bits, has_static, static_e, rows, splits, tps};
+  return static_cast<int>(x_is_bf16 ? qmm::gemv8::launch<__nv_bfloat16>(a, warps, grid_x, smem, s)
+                                    : qmm::gemv8::launch<float>(a, warps, grid_x, smem, s));
 }
 
 // M > 8: the pre-pass into xq (M, K) int8 and e (M) float scratch, then the

@@ -10,7 +10,7 @@
 // tile, so its sums equal the fused kernel's bit for bit.
 //
 // M <= 8 (packed_qmm_launch, packed_qmm_int8_launch): the fused site's
-// GEMV (qmm_gemv.cuh; int8: qmm_gemv8.cuh) over x_q as given, writing the
+// GEMV (qmm_gemv.cuh; the int8 loop: qmm_gemv8.cuh) over x_q as given, writing the
 // raw sums -- the same plan, steps and float order, so the sums equal the
 // fused kernel's bit for bit, and the caller's exponent, bias and
 // activation reproduce the fused site.
@@ -38,11 +38,15 @@ extern "C" int packed_qmm_launch(int decode, const void* xq, const void* w, cons
   return static_cast<int>(qmm::gemv::launch_any<int8_t>(decode, a, grid_x, smem, static_cast<cudaStream_t>(stream)));
 }
 
-// M <= 8, the int8 decode (see fused_qmm.cu).
-extern "C" int packed_qmm_int8_launch(const void* xq, const void* w, const void* scale_m, void* out, int M, int K,
-                                      int N, int group, int bk, int rpb, void* stream) {
-  return static_cast<int>(qmm::gemv8::launch<int8_t>(xq, w, scale_m, nullptr, nullptr, out, M, K, N, group, bk, rpb,
-                                                     0, 8, 0, 0, static_cast<cudaStream_t>(stream)));
+// M <= 8, the int8 loop (see fused_qmm.cu).
+extern "C" int packed_qmm_int8_launch(const void* xq, const void* w, const void* scale_m, void* out, void* ws,
+                                      void* counters, int M, int K, int N, int group, int bk, int rows, int splits,
+                                      int tps, int warps, int grid_x, size_t smem, void* stream) {
+  const qmm::gemv8::Args a{xq, static_cast<const int8_t*>(w), static_cast<const int8_t*>(scale_m), nullptr,
+                           nullptr, static_cast<float*>(out), static_cast<float*>(ws), static_cast<int*>(counters),
+                           M, K, N, group, bk, 0, 8, 0, 0, rows, splits, tps};
+  return static_cast<int>(
+      qmm::gemv8::launch<int8_t>(a, warps, grid_x, smem, static_cast<cudaStream_t>(stream)));
 }
 
 // M <= 8 over E experts (flags: E x P ints of scratch; grid: the wrapper's

@@ -43,9 +43,13 @@ What bounds it on the H100, and the two kernels:
   one fma gives ``float(dot) * sm`` rounded once.  ``gemv_plan`` splits
   k-tiles over up to 4 blocks of one thread block cluster where the
   columns alone give fewer blocks than SMs; block 0 adds the splits' tile
-  sums in tile order from distributed shared memory.  int8 sites as wide
-  as lm_head keep the 128-column loop of ``csrc/qmm_gemv8.cuh``
-  (``uses_int8_loop``).
+  sums in tile order from distributed shared memory.  int8 sites with
+  many 128-column items (every lm_head, mx's gate / up;
+  ``uses_int8_loop``) take the int8 loop of ``csrc/qmm_gemv8.cuh``
+  instead: a persistent grid whose warps each stream the weight rows of
+  128 columns through their own cp.async ring, ``mma.sync`` s8 m16n8k32,
+  and k-splits (``int8_loop_plan``, narrow sites only) folded in tile
+  order by the warp that completes an item.
 - Prefill, M > 8: int8 operations, 2 M K N (50 us a layer of qwen3-8b at
   M = 256 at the 1,979 TOP/s peak).  Two launches: a pre-pass quantizes
   each row of x once into int8 scratch (with its float exponent), then
@@ -78,7 +82,6 @@ _GEMV_MODE = {"ternary": 0, "int8": 1, "nf4": 2, "int4": 3}  # 3: int4 fields as
 LUTS = {"int4": tuple(c if c < 8 else c - 16 for c in range(16)), "nf4": NF4_LUT_I8}
 _UNIT_K = {"ternary": 16, "int8": 4, "int4": 8, "nf4": 8}  # K elements per inner step of the kernel
 _ACTS = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
-_ROWS_PER_BLOCK = 8  # rows per block (at most) of the int8 GEMV kernel; it takes any M, no padded copy
 _MAX_SMEM = 232_448 - 512  # a Hopper block's shared memory, less the kernel's static part
 # The tensor-core tile (csrc/qmm_mma.cuh: kBM, kBN, kThreads, kOut): output
 # block, threads, output sums a thread; the cluster lengths it takes (mma
@@ -95,7 +98,20 @@ TILE_SPLIT_BYTES = 4 * 2**20
 # tile's cluster lengths.
 GEMV_STRIP, GEMV_WARPS, GEMV_BLOCKS_PER_SM, GEMV_MAX_SPLITS = 32, 8, 2, 4
 GEMV_SMEM = 110 * 1024
-
+# The int8 loop (csrc/qmm_gemv8.cuh, M <= 8): output columns a warp,
+# weight rows of a ring stage, ring stages a warp, x rows a block (the mma's
+# n), warps a block (at least, and its __launch_bounds__), the dynamic
+# shared memory a block may take beside its static part (under 1 KB); and
+# the plan's model: one warp streams at most 1 / LOOP_WARP_SHARE of an SM's
+# share of the weight stream, and a plan that splits the k-tiles costs
+# LOOP_SPLIT_COST percent more (the card's SMs stream far-apart weight rows
+# at once: the copies alone at qwen3-8b's lm_head ran at 2.79 TB/s unsplit
+# and 1.92-2.12 TB/s at 2, 4 and 8 splits on the H100,
+# tools/int8_loop_variants.py --splits).
+LOOP_COLS, LOOP_STAGE_K, LOOP_RING, LOOP_MAX_ROWS = 128, 32, 4, 8
+LOOP_MIN_WARPS, LOOP_MAX_WARPS = 4, 12
+LOOP_SMEM = 232_448 - 1024
+LOOP_WARP_SHARE, LOOP_SPLIT_COST = 4, 40
 
 # ---------------------------------------------------------------------------
 # Activations: the one table both the kernel epilogue and the plain path use
@@ -208,7 +224,8 @@ def _lib():
                    + [ctypes.c_uint] * 4 + [ctypes.c_size_t, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     int8 = lib.fused_qmm_int8_launch
-    int8.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    int8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
+                     + [ctypes.c_size_t, ctypes.c_void_p])
     int8.restype = ctypes.c_int
     tile = lib.fused_qmm_tile_launch
     tile.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_uint] * 4
@@ -217,23 +234,104 @@ def _lib():
     return fn, int8, tile
 
 
-def smem_bytes(rows: int, k: int, decode: str, group: int, block_k: int = 512) -> int:
-    """Dynamic shared memory of a block of the int8 GEMV (``csrc/qmm_gemv8.cuh``)
-    with ``rows`` rows: int8 rows, exponents, tile sums, the block's scale
-    mantissas."""
-    bn = 128 if decode == "int8" else 32
-    return rows * k + 4 * _ROWS_PER_BLOCK + n_tiles(k, block_k) * rows * bn * 4 + (k // group) * bn
+def loop_x_stride(k: int) -> int:
+    """Bytes of one int8 row of x in the int8 loop's shared memory: K
+    rounded up to 128, plus 16, so the rows' B loads fall on other banks."""
+    return ((k + 127) & ~127) + 16
 
 
-def rows_per_block(m: int, k: int, decode: str, group: int, block_k: int = 512) -> int:
-    """Rows a block of the int8 GEMV takes: 8, or fewer where the block's
-    rows, tile sums and scales would not fit its shared memory (K = 12288
-    with mx's 32-element clusters takes 7)."""
-    for rows in range(_ROWS_PER_BLOCK, 0, -1):
-        if smem_bytes(min(m, rows), k, decode, group, block_k) <= _MAX_SMEM:
+def smem_bytes(warps: int, rows: int, k: int, group: int) -> int:
+    """Dynamic shared memory of a block of the int8 loop (``csrc/qmm_gemv8.cuh``):
+    ``warps`` rings of LOOP_RING stages (32 weight rows x 128 columns and the
+    scale rows of the clusters that close in a stage: at most
+    ceil(32 / group)), then ``rows`` int8 rows of x.  The launch passes it;
+    the kernel refuses another size."""
+    closes = -(-LOOP_STAGE_K // group)
+    return warps * LOOP_RING * (LOOP_STAGE_K + closes) * LOOP_COLS + rows * loop_x_stride(k)
+
+
+def rows_per_block(m: int, k: int, group: int) -> int:
+    """Rows of x a block of the int8 loop keeps: all M (up to 8), or fewer
+    where they would not fit beside LOOP_MIN_WARPS rings (K = 49152 at
+    M = 8 takes 3); the grid then repeats over row blocks."""
+    for rows in range(min(m, LOOP_MAX_ROWS), 0, -1):
+        if smem_bytes(LOOP_MIN_WARPS, rows, k, group) <= LOOP_SMEM:
             return rows
-    raise ValueError(f"K={k} needs {smem_bytes(1, k, decode, group, block_k)} bytes of shared memory "
-                     f"for one row (max {_MAX_SMEM})")
+    raise ValueError(f"K={k} needs {smem_bytes(LOOP_MIN_WARPS, 1, k, group)} bytes of shared memory for one row "
+                     f"of the int8 loop (max {LOOP_SMEM})")
+
+
+def _sm_time(tiles, share: int) -> int:
+    """Time of one SM whose warps stream ``tiles`` k-tiles each, in units of
+    one tile at the SM's whole rate: the active warps share the SM's rate,
+    a warp taking at most 1 / ``share`` of it."""
+    left, done, elapsed = sorted(c for c in tiles if c), 0, 0
+    while left:
+        elapsed += (left[0] - done) * max(share, len(left))
+        done = left[0]
+        left = [c for c in left if c > done]
+    return elapsed
+
+
+@functools.cache
+def int8_loop_plan(m: int, k: int, n: int, group: int, block_k: int = 512, sms: int = 132) -> dict:
+    """The int8 loop's launch (M <= 8).  Work comes in units: one of an
+    item's ``splits`` ranges of ``tps`` k-tiles x the item's 128 columns,
+    numbered range-major.  The grid is persistent, ``grid_x`` blocks (one
+    an SM; fewer where the rows of x take ``row_blocks`` passes) of
+    ``warps`` warps, and warp r = warp * grid_x + block of the card walks
+    units r, r + W, ... (W warps in all): the SMs take neighbouring units,
+    so they stream the same weight rows at once.  Of the (splits, warps)
+    that fit LOOP_SMEM, the plan takes those that give every SM a unit
+    (where any does), then the one whose busiest SM (block 0) ends first by
+    ``_sm_time`` (a split plan costing LOOP_SPLIT_COST percent more), then
+    fewer splits, then more warps (more bytes in flight): qwen3-8b's
+    lm_head, 1188 items of 8 tiles, takes no split and one item a warp;
+    whisper-base's 406 one-tile items, no split; mx's gate, 96 items of 8
+    tiles, 8 splits of one tile.  ``ws_floats`` /
+    ``counters``: the split items' scratch (tile sums, one plane of rows x
+    128 a tile) and arrival counters, 0 without splits."""
+    if group % 4 or k % group or min(block_k, k) % group or n % 4:
+        raise ValueError(f"the int8 loop takes clusters of whole 4-row units that tile K and k-tiles, and N % 4 == 0; "
+                         f"got group={group} K={k} block_k={block_k} N={n}")
+    nk, items = n_tiles(k, block_k), -(-n // LOOP_COLS)
+    rows = rows_per_block(m, k, group)
+    row_blocks = -(-m // rows)
+    grid_x = max(1, sms // row_blocks)
+    best = None
+    for splits in range(1, nk + 1):
+        tps = -(-nk // splits)
+        if -(-nk // tps) != splits:
+            continue
+        units = items * splits
+        for warps in range(LOOP_MIN_WARPS, LOOP_MAX_WARPS + 1):
+            smem = smem_bytes(warps, rows, k, group)
+            if smem > LOOP_SMEM:
+                break
+            stride = grid_x * warps
+            tiles = [len(range(w * grid_x, units, stride)) * tps for w in range(warps)]  # block 0's warps
+            cost = _sm_time(tiles, LOOP_WARP_SHARE) * (100 + LOOP_SPLIT_COST * (splits > 1))
+            key = (units < grid_x, cost, splits, -warps)
+            if best is None or key < best[0]:
+                best = (key, dict(splits=splits, tps=tps, warps=warps, smem=smem, units=units))
+    plan = best[1]
+    split = plan["splits"] > 1
+    return dict(plan, rows=rows, row_blocks=row_blocks, grid_x=grid_x, blocks=grid_x * row_blocks,
+                ws_floats=row_blocks * items * nk * rows * LOOP_COLS if split else 0,
+                counters=row_blocks * items if split else 0)
+
+
+def loop_scratch(dev, plan: dict, stream: int):
+    """(ws, counters) of a split int8 loop launch, (None, None) otherwise."""
+    if plan["splits"] == 1:
+        return None, None
+    return (torch.empty(plan["ws_floats"], dtype=torch.float32, device=dev),
+            _build.arrival_counters(dev, stream, plan["counters"]))
+
+
+def loop_args(plan: dict) -> tuple:
+    """The plan as the int8 loop's launchers take it (after N, group, bk)."""
+    return tuple(plan[key] for key in ("rows", "splits", "tps", "warps", "grid_x"))
 
 
 def gemv_step(decode: str, group: int):
@@ -247,13 +345,30 @@ def gemv_step(decode: str, group: int):
     return sk, (4 if lane == 32 else 8), lane
 
 
-def uses_int8_loop(decode: str, n: int, sms: int = 132) -> bool:
-    """M <= 8 int8 sites whose 128-column blocks alone fill the card
-    (lm_head: 1188 blocks) run the int8 loop of ``csrc/qmm_gemv8.cuh``: it
-    reads each weight row in 128-byte runs, where the GEMV's 32-column
-    strips read int8 rows in 32-byte runs (slower on lm_head; PERF.md, the
-    int8 route).  Other int8 sites (the mx layers) run the GEMV."""
-    return decode == "int8" and -(-n // 128) >= sms
+def uses_int8_loop(decode: str, m: int, k: int, n: int, group: int, block_k: int = 512, sms: int = 132) -> bool:
+    """Which kernel takes an int8 site at M <= 8: the int8 loop of
+    ``csrc/qmm_gemv8.cuh`` where its items of 128 columns alone give at
+    least half the SMs an item (ceil(N / 128) >= sms / 2) and all M rows of
+    x fit a block, or where the GEMV does not take the cluster length (not
+    in TILE_GROUPS); the GEMV of ``csrc/qmm_gemv.cuh`` otherwise.  The rows
+    behind each choice (``chip_smoke.py``'s int8 route line; PERF.md, PR 27,
+    NVIDIA H100 80GB HBM3, 700 W, M = 4): every family's lm_head (250 to
+    2048 items) on the loop, 1.3-2.5x faster than the GEMV (qwen3-8b's
+    0.238 vs 0.507 ms, whisper-base's 0.0316 vs 0.0392); the mx layer
+    (group 32) of qwen3-8b: gate / up (96 items) on the loop, 0.062 vs
+    0.070 ms; wq / wo, down (32 items: split 8 and 24 ways) and wk / wv (8)
+    on the GEMV, 0.027 vs 0.054, 0.058 vs 0.106, 0.019 vs 0.053 ms; the
+    MoE router (N 8: one item) on the GEMV; K = 49152 at M > 3 (x does not
+    fit beside the rings) on the GEMV, which stages x."""
+    if decode != "int8":
+        return False
+    if group not in TILE_GROUPS:
+        return True
+    try:
+        rows = rows_per_block(m, k, group)
+    except ValueError:
+        return False
+    return rows >= min(m, LOOP_MAX_ROWS) and 2 * -(-n // LOOP_COLS) >= sms
 
 
 def gemv_smem_bytes(m: int, k: int, decode: str, group: int, bk: int, tps: int, cpp: int, wn: int,
@@ -501,9 +616,11 @@ def fused_qmm(
         err = tile(int(x.dtype == torch.bfloat16), _MODE[decode], group, *head, xq.data_ptr(), e.data_ptr(),
                    _ptr(ws), _ptr(counters), m, k, n, min(block_k, k), plan["tps"], plan["splits"], _ACTS[act],
                    act_bits, *static, *lut_words(decode), plan["smem"], stream)
-    elif uses_int8_loop(decode, n, _build.sm_count(x.device)):
-        err = gemv8(int(x.dtype == torch.bfloat16), *head, m, k, n, group, min(block_k, k),
-                    rows_per_block(m, k, decode, group, block_k), _ACTS[act], act_bits, *static, stream)
+    elif uses_int8_loop(decode, m, k, n, group, block_k, _build.sm_count(x.device)):
+        plan = int8_loop_plan(m, k, n, group, block_k, _build.sm_count(x.device))
+        ws, counters = loop_scratch(x.device, plan, stream)
+        err = gemv8(int(x.dtype == torch.bfloat16), *head, _ptr(ws), _ptr(counters), m, k, n, group,
+                    min(block_k, k), *loop_args(plan), _ACTS[act], act_bits, *static, plan["smem"], stream)
     else:
         plan = gemv_plan(m, k, n, decode, group, block_k, _build.sm_count(x.device))
         err = gemv(int(x.dtype == torch.bfloat16), _GEMV_MODE[decode], *head, m, k, n, group, min(block_k, k),

@@ -45,8 +45,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_qmm import (
     _GEMV_MODE, _MODE, GEMV_BLOCKS_PER_SM, GEMV_STRIP, GEMV_WARPS, _ptr, check_operands, check_weights,
-    cluster_sums, gemv_args, gemv_plan, gemv_step, lut_words, rows_per_block, tile_plan, tile_scratch,
-    uses_int8_loop, uses_tile,
+    cluster_sums, gemv_args, gemv_plan, gemv_step, int8_loop_plan, loop_args, loop_scratch, lut_words, tile_plan,
+    tile_scratch, uses_int8_loop, uses_tile,
 )
 
 # The expert-batched GEMV (csrc/qmm_gemv_experts.cuh): the experts a site
@@ -94,7 +94,7 @@ def _lib():
                    + [ctypes.c_size_t, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     int8 = lib.packed_qmm_int8_launch
-    int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    int8.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_size_t, ctypes.c_void_p]
     int8.restype = ctypes.c_int
     tile = lib.packed_qmm_tile_launch
     tile.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 4
@@ -142,8 +142,11 @@ def packed_qmm(x_q, packed, scale_m, *, decode: str, group: int, block_k: int = 
         err = experts(_GEMV_MODE[decode], x_q.data_ptr(), packed.data_ptr(), scale_m.data_ptr(), flags.data_ptr(),
                       out.data_ptr(), e, plan["slices"], m, k, n, group, min(block_k, k), *lut_words(decode),
                       plan["grid"], plan["smem"], stream)
-    elif uses_int8_loop(decode, n, sms):
-        err = gemv8(*head, m, k, n, group, min(block_k, k), rows_per_block(m, k, decode, group, block_k), stream)
+    elif uses_int8_loop(decode, m, k, n, group, block_k, sms):
+        plan = int8_loop_plan(m, k, n, group, block_k, sms)
+        ws, counters = loop_scratch(x_q.device, plan, stream)
+        err = gemv8(*head, _ptr(ws), _ptr(counters), m, k, n, group, min(block_k, k), *loop_args(plan), plan["smem"],
+                    stream)
     else:
         plan = gemv_plan(m, k, n, decode, group, block_k, sms)
         err = gemv(_GEMV_MODE[decode], *head, m, k, n, group, min(block_k, k), *gemv_args(plan), *lut_words(decode),

@@ -115,16 +115,18 @@ def test_weight_codes_match_reference(fmt, kind, group):
         assert tq.group_size == 32  # the format pins its block
 
 
-@pytest.mark.parametrize("m,k,decode,group,rows", [(256, 4096, "ternary", 64, 8), (256, 12288, "int4", 64, 8),
-                                                   (4, 12288, "int8", 32, 8), (256, 12288, "int8", 32, 7),
-                                                   (256, 12288, "int8", 64, 8), (2, 4096, "int8", 32, 8)])
+@pytest.mark.parametrize("m,k,decode,group,rows", [(4, 4096, "int8", 64, 4), (8, 12288, "int8", 32, 8),
+                                                   (8, 49152, "int8", 32, 3), (1, 49152, "int8", 64, 1),
+                                                   (8, 8192, "int8", 64, 8), (2, 4096, "int8", 4, 2)])
 def test_rows_per_block_fit_shared_memory(m, k, decode, group, rows):
-    """The quantized-matmul kernels take 8 rows a block, fewer where an
-    mx-clustered int8 site's rows would overflow shared memory."""
-    from repro_torch.kernels.fused_qmm import _MAX_SMEM, rows_per_block, smem_bytes
+    """The int8 loop keeps all M rows of x (up to 8) in a block beside its
+    smallest rings, fewer where they would overflow shared memory (K =
+    49152 at M = 8 takes 3); mx's and group 4's extra scale rows fit."""
+    from repro_torch.kernels.fused_qmm import LOOP_MIN_WARPS, LOOP_SMEM, rows_per_block, smem_bytes
 
-    assert rows_per_block(m, k, decode, group) == rows
-    assert smem_bytes(min(m, rows), k, decode, group) <= _MAX_SMEM
+    assert decode == "int8"  # the loop's only decode
+    assert rows_per_block(m, k, group) == rows
+    assert smem_bytes(LOOP_MIN_WARPS, rows, k, group) <= LOOP_SMEM
 
 
 def test_registry_order_keeps_bits_defaults():

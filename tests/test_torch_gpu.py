@@ -324,14 +324,15 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 @pytest.mark.parametrize("m", [4, 17])
 def test_mx_long_rows_take_fewer_rows_per_block(dev, m):
-    """mx at d_ff = 12288: 32-element clusters leave room for 7 rows a
-    block of the GEMV kernel; at M = 17 the tile runs the same site."""
+    """mx at d_ff = 12288: the int8 loop keeps all of x's rows (up to 8) in
+    a block beside its rings (32-element clusters: one scale row a stage);
+    at M = 17 the tile runs the same site."""
     from repro_torch.kernels.fused_qmm import rows_per_block
     from repro_torch.quant import qdense
 
     gen = torch.Generator(device=dev).manual_seed(m)
     qt = quantize_weights(torch.randn((12288, 256), generator=gen, device=dev) * 0.01, 8, 32, fmt="mx")
-    assert rows_per_block(m, 12288, "int8", 32) == (8 if m <= 8 else 7)
+    assert rows_per_block(m, 12288, 32) == min(m, 8)
     x = _edge_x(m, 12288, gen, dev, torch.bfloat16)
     fused = qdense(x, qt, backend="cuda")
     unfused = qdense(x, qt, backend="cuda", fused=False)
@@ -425,11 +426,105 @@ def test_gemv_rejects_groups_it_does_not_take(dev):
     qt = quantize_weights(torch.randn((1024, 64), device=dev), 4, 8)
     with pytest.raises(ValueError, match="GEMV"):  # group 8: no mma k takes it
         int4_matmul_fused(torch.randn((4, 1024), device=dev), qt.packed, qt.scale_m, qt.scale_e, group=8)
-    # an int8 site as wide as lm_head takes the int8 loop, which takes any group of whole 4-row units
+    # an int8 site that fills the card takes the int8 loop, which takes any group of whole 4-row units
     from repro_torch.kernels.fused_qmm import uses_int8_loop
-    assert uses_int8_loop("int8", 152064) and not uses_int8_loop("int8", 12288)
+    assert uses_int8_loop("int8", 4, 1024, 152064, 64) and not uses_int8_loop("int8", 4, 1024, 64, 64)
+    assert uses_int8_loop("int8", 4, 1024, 64, 8)
     with pytest.raises(ValueError, match="GEMV"):
         int4_matmul(torch.zeros((4, 1024), dtype=torch.int8, device=dev), qt.packed, qt.scale_m, group=8)
+
+
+# ---------------------------------------------------------------------------
+# the int8 loop (M <= 8, csrc/qmm_gemv8.cuh): every lm_head K, the mx sites
+# ---------------------------------------------------------------------------
+LOOP_KS = [512, 3072, 3584, 3840, 4096, 6144, 7168, 8192]  # every family's lm_head K; 3840: a ragged last tile
+
+
+def _loop_site(k, n, group, gen, dev):
+    w = torch.randint(-128, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    sm = torch.randint(-127, 128, (k // group, n), generator=gen, device=dev, dtype=torch.int8)
+    return w, sm, torch.tensor([-9], dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("k", LOOP_KS)
+@pytest.mark.parametrize("m", range(1, 9))
+def test_int8_loop_bit_exact_at_lm_head_k(dev, k, m):
+    """The loop (N sized so its units fill the card) against the plain
+    versions: fused in bf16 with the dynamic exponent, in float32 with a
+    static one, a bias and silu / gelu; packed over quantize_rows' rows."""
+    from repro_torch.kernels.fused_qmm import fused_qmm, uses_int8_loop
+    from repro_torch.kernels.packed_qmm import packed_qmm, packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows
+
+    gen = torch.Generator(device=dev).manual_seed(k + m)
+    n = 128 * 72  # 72 items of 128 columns: the loop's route
+    assert uses_int8_loop("int8", m, k, n, 64)
+    w, sm, se = _loop_site(k, n, 64, gen, dev)
+    bias = torch.randn((n,), generator=gen, device=dev)
+    for dtype, kw in ((torch.bfloat16, {}), (torch.float32, dict(act_exponent=-3, bias=bias, act="silu")),
+                      (torch.bfloat16, dict(bias=bias, act="gelu"))):
+        x = _edge_x(m, k, gen, dev, dtype)
+        got = fused_qmm(x, w, sm, se, decode="int8", group=64, **kw)
+        want = fused_qmm_ref(x, w, sm, se, decode="int8", group=64, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    xq, _ = quantize_rows(x)
+    got = packed_qmm(xq, w, sm, decode="int8", group=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), packed_qmm_ref(xq, w, sm, decode="int8", group=64).view(torch.int32))
+
+
+@pytest.mark.parametrize("name,k,n", [("wq", 4096, 4096), ("wk", 4096, 1024), ("wo", 4096, 4096),
+                                      ("gate", 4096, 12288), ("down", 12288, 4096)])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_mx_sites_bit_exact_on_their_route(dev, name, k, n, m):
+    """The mx layer's sites (group 32) on the route the plan picks, fused
+    and unfused, against the plain version."""
+    from repro_torch.quant import qdense
+
+    gen = torch.Generator(device=dev).manual_seed(k + n + m)
+    qt = quantize_weights(torch.randn((k, n), generator=gen, device=dev) * 0.01, 8, 32, fmt="mx")
+    x = _edge_x(m, k, gen, dev, torch.bfloat16)
+    want = fused_qmm_ref(x, qt.packed, qt.scale_m, qt.scale_e, decode="int8", group=32, act="silu")
+    for fused in (True, False):
+        got = qdense(x, qt, backend="cuda", fused=fused, act="silu")
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("k,n", [(7168, 32000), (3584, 32000), (4096, 12288)])
+def test_int8_loop_k_splits_bit_exact_and_repeatable(dev, k, n):
+    """Plans that split the k-tiles (arctic's and zamba2's lm_head, an int8
+    site as wide as mx's gate): the fold through scratch gives the plain
+    version's bits on every call, whichever warp arrives last."""
+    from repro_torch.kernels.fused_qmm import fused_qmm, int8_loop_plan, uses_int8_loop
+
+    assert int8_loop_plan(4, k, n, 64)["splits"] > 1 and uses_int8_loop("int8", 4, k, n, 64)
+    gen = torch.Generator(device=dev).manual_seed(k)
+    w, sm, se = _loop_site(k, n, 64, gen, dev)
+    x = _edge_x(4, k, gen, dev, torch.bfloat16)
+    want = fused_qmm_ref(x, w, sm, se, decode="int8", group=64)
+    for _ in range(3):
+        got = fused_qmm(x, w, sm, se, decode="int8", group=64)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("group,k", [(4, 1024), (12, 1536), (20, 2560), (48, 3072)])
+def test_int8_loop_takes_any_group_of_whole_4_row_units(dev, group, k):
+    """Clusters the GEMV does not take: they end inside a 16-k step and
+    close there; float32 x, K a multiple of the cluster."""
+    from repro_torch.kernels.fused_qmm import fused_qmm, uses_int8_loop
+
+    gen = torch.Generator(device=dev).manual_seed(group)
+    n = 512
+    assert uses_int8_loop("int8", 5, k, n, group)
+    w, sm, se = _loop_site(k, n, group, gen, dev)
+    x = _edge_x(5, k, gen, dev, torch.float32)
+    got = fused_qmm(x, w, sm, se, decode="int8", group=group, block_k=k // 2)
+    want = fused_qmm_ref(x, w, sm, se, decode="int8", group=group, block_k=k // 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------

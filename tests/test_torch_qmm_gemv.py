@@ -1,6 +1,7 @@
 """The GEMV of the quantized dense kernels at M <= 8 (``csrc/qmm_gemv.cuh``),
-emulated on the CPU (the kernel itself runs only on the card; lm_head's
-int8 sites keep the int8 loop of ``qmm_gemv8.cuh``).
+emulated on the CPU (the kernel itself runs only on the card; the int8
+sites that fill the card -- every lm_head, the mx layer's wide sites -- take
+the int8 loop of ``qmm_gemv8.cuh``).
 
 Torch rebuilds each part of the GEMV's data flow and holds it bit for bit
 against the plain versions ``cluster_sums`` / ``fused_qmm_ref``:
@@ -29,7 +30,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_qmm import (
     GEMV_BLOCKS_PER_SM, GEMV_MAX_SPLITS, GEMV_SMEM, GEMV_STRIP, GEMV_WARPS, TILE_GROUPS, check_weights, cluster_sums,
-    fused_qmm_ref, gemv_plan, gemv_smem_bytes, gemv_step, lut_words, quantize_prologue, rows_per_block,
+    fused_qmm_ref, gemv_plan, gemv_smem_bytes, gemv_step, int8_loop_plan, lut_words, quantize_prologue,
     uses_int8_loop, uses_tile,
 )
 from repro_torch.kernels.packed_qmm import expert_plan, expert_x_bytes, packed_qmm_ref
@@ -472,13 +473,17 @@ def test_shared_memory_plan_fits_at_k_12288(decode, group):
 
 @pytest.mark.parametrize("m", range(1, 9))
 def test_lm_head_int8_loop_fills_the_card(m):
-    """lm_head (int8, K = 4096, N = 152064) keeps the int8 loop: 128
-    columns and up to 8 rows a block, 1188 blocks at every M <= 8; the mx
-    layers' int8 sites run the GEMV."""
-    rows = rows_per_block(m, 4096, "int8", 64)
-    assert rows == 8 and -(-152064 // 128) * -(-m // rows) == 1188
-    assert uses_int8_loop("int8", 152064) and not any(uses_int8_loop("int8", n) for _, n in QWEN_SITES)
-    assert not uses_int8_loop("ternary", 152064)
+    """lm_head (int8, K = 4096, N = 152064) takes the int8 loop: all M rows
+    of x in a block, one block an SM, its 1188 items of 128 columns on as
+    many warps (no k-split); of the mx layer's int8 sites (group 32) the
+    loop takes gate and up (96 items of 128 columns), the GEMV the rest; no
+    other decode takes the loop."""
+    plan = int8_loop_plan(m, 4096, 152064, 64)
+    assert plan["rows"] == m and plan["blocks"] == SMS and plan["splits"] == 1
+    assert plan["units"] == 1188 <= plan["warps"] * plan["grid_x"]
+    assert uses_int8_loop("int8", m, 4096, 152064, 64)
+    assert [uses_int8_loop("int8", m, k, n, 32) for k, n in QWEN_SITES] == [n >= 12288 for _, n in QWEN_SITES]
+    assert not uses_int8_loop("ternary", m, 4096, 152064, 64)
 
 
 def test_plan_splits_and_loops():

@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_prefill import (
 )
 from repro_torch.kernels.fused_qmm import (
     GEMV_SMEM, _decode, check_tile, check_weights, cluster_sums, fused_qmm_ref, gemv_plan, gemv_smem_bytes,
-    n_tiles, rows_per_block, smem_bytes, tile_plan,
+    int8_loop_plan, n_tiles, rows_per_block, smem_bytes, tile_plan,
 )
 from repro_torch.kernels.packed_qmm import packed_qmm
 from repro_torch.quant.formats import quantize_weights
@@ -195,9 +195,12 @@ def test_gemma3_sites_plan(decode, group, k, n):
 
 def test_int8_loop_sizes_the_ragged_lm_head():
     """gemma3's int8 lm_head (K = 3840, N = 262144) on the int8 loop: its
-    tile sums count the ragged tile."""
-    assert smem_bytes(4, 3840, "int8", 64) == 4 * 3840 + 32 + 8 * 4 * 128 * 4 + 60 * 128
-    assert rows_per_block(4, 3840, "int8", 64) == 8
+    rows of x are K rounded up to 128 plus 16 bytes, its 8 k-tiles (the
+    last of 256 rows) one unit with no split, all M rows in a block."""
+    assert smem_bytes(4, 4, 3840, 64) == 4 * 4 * (32 + 1) * 128 + 4 * (3840 + 16)
+    assert rows_per_block(4, 3840, 64) == 4
+    plan = int8_loop_plan(4, 3840, 262144, 64)
+    assert (plan["splits"], plan["tps"], plan["units"]) == (1, n_tiles(3840), 2048)
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
