@@ -113,8 +113,8 @@ Phases, in order; any failure exits non-zero:
                  prompt token each took 417 s at 48 layers) beside the
                  staged engine on that model; its 6-layer float32 twin
                  (5 local + 1 global) at T 2048, flash against the oracle
-                 within 5e-3; qwen1.5-110b, 40 of 80 layers (cut for
-                 time: the script's limit), seeded non-zero
+                 within 5e-3; qwen1.5-110b, 20 of 80 layers (cut for
+                 time: the script's limit; 40 until the mesh phase), seeded non-zero
                  q / k / v biases, through the StagedEngine on the
                  launcher's 8 requests (6-token prompts: the GEMV only),
                  with GEMV launches at K = 49152; and
@@ -139,15 +139,16 @@ Phases, in order; any failure exits non-zero:
                  plain versions on the card, bit for bit, one quantize_rows
                  and one packed call a site, and the decode step under
                  torch.cuda.set_sync_debug_mode (no host synchronisation in
-                 the kernel wrappers) -- then grok-1-314b at 16 of 64 layers
-                 (~21 GB packed; 64 layers would take ~84 GB, and 24 -- the
-                 depth until this phase's time went to the vlm_ssm phase --
-                 fit too) through the StagedEngine and
+                 the kernel wrappers) -- then grok-1-314b at 8 of 64 layers
+                 (~11 GB packed; 64 layers would take ~84 GB, and 24 and
+                 16 -- the depths until this phase's time went to the
+                 vlm_ssm and the mesh phases -- fit too) through the
+                 StagedEngine and
                  the lockstep engine on the launcher's traffic (8 requests,
                  6-token prompts, 8 new tokens; staged vs lockstep token
                  differences logged, not gated) and staged on prompts of
-                 600, 257, 31 and 6 tokens (the tile); arctic-480b at 4 of
-                 35 layers (~14 GB packed) staged on the launcher's
+                 600, 257, 31 and 6 tokens (the tile); arctic-480b at 2 of
+                 35 layers (~7 GB packed; 4 until the mesh phase) staged on the launcher's
                  traffic, with 3 packed launches a layer a forward over its
                  128 experts.  Load s, packed and peak GB, tokens/s and
                  launches are logged
@@ -163,14 +164,15 @@ Phases, in order; any failure exits non-zero:
                  at T 1024, a 256-token chunk, ragged chunks; global and a
                  300-token window), decode at G = 8 (qwen2-vl) and the
                  vision prefill's in-chunk tail (S = T = 1040), 5e-5 -- then
-                 qwen2-vl-72b, all 80 layers: one vision prefill through
+                 qwen2-vl-72b, 40 of 80 layers (cut for the mesh phase's
+                 time): one vision prefill through
                  api.prefill (1024 seeded patch embeddings + 16 tokens,
                  M-RoPE positions from build_mrope_positions, both flash
                  flags) and 16 greedy decode steps, then both engines on the
                  launcher's traffic (8 requests, 6-token prompts, 8 new
                  tokens); falcon-mamba-7b (64 layers) and zamba2-7b (81
                  layers, flash decode at hd 112) through both engines on the
-                 launcher's traffic and one 128-token prompt through the
+                 launcher's traffic and one 64-token prompt through the
                  staged engine's per-token prefill fallback; staged vs
                  lockstep token differences logged, not gated; the twins:
                  qwen2-vl 2 layers float32 (the vision prefill, then flash
@@ -261,8 +263,34 @@ Phases, in order; any failure exits non-zero:
                  and packed, 0 ulps (arctic's and zamba2's plans split
                  their k-tiles); the rows no earlier phase times at M = 4
 
+ 17. mesh     -- serving on several GPUs (models/spmd.py) on the one card:
+                 every kernel at grok-1's shard shapes for model = 2 and 4
+                 (wq N 3072 / 1536, wk / wv N 512 / 256, the int8 lm_head
+                 N 65536 / 32768 on the int8 loop, the router N 4, the
+                 expert stacks E 4 / 2 at C 8) at M = 1, 3, 4, 5, 8, 0 ulps
+                 against its plain version and against the whole site's
+                 columns or experts, and flash decode over 4 / 2 of 8 kv
+                 heads (G 6, hd 128) planned for the whole call's pairs,
+                 5e-5 against the plain version and bit for bit the whole
+                 call's heads, each timed at M = 4; grok-1-314b at its
+                 published widths, 2 layers, ternary group 64, kv_int8,
+                 both flash flags: the parent writes the dp=1,ep=2 sharded
+                 artifact and serves both engines in one process, two
+                 spawned ranks share the card over gloo (each reading only
+                 its own shard files) and serve the launcher's traffic,
+                 their first decode steps' and a 64-token chunk's logits
+                 bit-equal to the single process and their tokens equal;
+                 per rank: resident GB, collective bytes a call, launches
+                 by kernel, which collectives gloo takes on CUDA tensors;
+                 the launcher under torch.distributed.run on one NCCL rank
+                 with --mesh dp=1,ep=1, its tokens the single-process
+                 launcher's; a rank's packed weights at full depth
+                 reckoned from the rules with nothing allocated (grok-1 64
+                 layers at ep=4 and 8, arctic-480b 35 layers at ep=8)
+
 The traced ticks and chunks log device busy time, kernels per call and the
-qdense GEMV's device time and launches per tick.
+qdense GEMV's device time and launches per tick.  ``--only mesh`` runs the
+build and the mesh phase alone (for iterating on it; no kernels line).
 
 The last two lines are the `kernels` JSON and the device JSON.
 """
@@ -1645,7 +1673,7 @@ def _quantize_twin(dev) -> None:
 # 9. families: the dense siblings at their published widths
 # ---------------------------------------------------------------------------
 GEMMA, QWEN110, PHI4 = "gemma3-12b", "qwen1.5-110b", "phi4-mini-3.8b"
-QWEN110_LAYERS = 40  # of 80: cut for the script's time limit (load 57 s at 80 layers)
+QWEN110_LAYERS = 20  # of 80: cut for the script's time limit (load 57 s at 80 layers; 40 until the mesh phase)
 GEMMA_MAX_LEN = 2048
 # longest first, so the lockstep engine (one prompt token a tick) runs them side by side
 GEMMA_PROMPTS = [1900, 1700, 1300, 1025, 640, 255, 37, 1]
@@ -2049,8 +2077,8 @@ def phase_families(dev, errs) -> tuple:
 # 10. moe: the MoE family at its published widths
 # ---------------------------------------------------------------------------
 GROK, ARCTIC = "grok-1-314b", "arctic-480b"
-GROK_LAYERS = 16  # of 64 (~21 GB packed; 64 layers, ~84 GB, do not fit the card): cut from 24 for the time limit
-ARCTIC_LAYERS = 4  # of 35: ~14 GB packed, the 128-expert path at a few layers
+GROK_LAYERS = 8  # of 64 (~11 GB packed; 64 layers, ~84 GB, do not fit one card): cut from 24 and 16 for the time limit
+ARCTIC_LAYERS = 2  # of 35: ~7 GB packed, the 128-expert path at a few layers (4 until the mesh phase)
 MOE_FORMATS = FORMATS  # every weight format over the experts
 EXPERT_SITES = [  # (name, E, K, N, capacity rows C): grok gate / up and down, arctic's
     ("grok_gate", 8, 6144, 32768, (8, 80)), ("grok_down", 8, 32768, 6144, (8, 80)),
@@ -2437,9 +2465,10 @@ def phase_moe(dev, errs) -> tuple:
 # 11. vlm_ssm: the VLM, SSM and hybrid families at their published widths
 # ---------------------------------------------------------------------------
 VLM, SSM, HYBRID = "qwen2-vl-72b", "falcon-mamba-7b", "zamba2-7b"
+VLM_LAYERS = 40  # of 80: cut for the script's time limit when the mesh phase came (load 37 s at 80 layers)
 VLM_TEXT, VLM_STEPS = 16, 16  # text tokens after the 1024 patch embeddings; greedy decode steps after the prefill
 VLM_MAX_LEN = 1088  # 1024 + 16 + 16 positions, 34 kv_mx blocks
-SSM_LONG_PROMPT = 128  # one prompt through the staged engine's per-token fallback
+SSM_LONG_PROMPT = 64  # one prompt through the staged engine's per-token fallback (128 until the mesh phase)
 HYBRID_TWIN_LAYERS = 7  # one superblock of 6 Mamba2 layers and its shared attention, plus a tail layer
 TWIN_TOKENS = 24  # the SSM twins: a forward pass over 24 tokens, or 24 decode steps
 # (label, K, N, bias, JSON row at M <= 8 or None): the new families' qdense shapes
@@ -2586,13 +2615,13 @@ def _vision_logits(api, params, batch, steps, max_len=VLM_MAX_LEN):
 
 
 def _family_vlm(dev, totals) -> None:
-    """qwen2-vl-72b at all 80 layers: one vision prefill (1024 patch
+    """qwen2-vl-72b at VLM_LAYERS of 80 layers: one vision prefill (1024 patch
     embeddings + 16 tokens) through ``api.prefill`` with both flash flags
     over kv_int8, 16 greedy decode steps; both engines on the launcher's
     text traffic."""
     from repro_torch.launch import serve
 
-    cfg = _ptq_cfg(arch=VLM, kv_fmt="kv_int8", flash_prefill=True)
+    cfg = _ptq_cfg(VLM_LAYERS, arch=VLM, kv_fmt="kv_int8", flash_prefill=True)
     booted = _boot_family(dev, cfg, VLM)
     qparams, _, api = booted
     batch = _vision_batch(cfg, dev)
@@ -3790,7 +3819,7 @@ def _time_flash_attention(timer, gen, dev, shape=ATTN_FULL, heads=ATTN_HEADS) ->
     return row
 
 
-def _time_flash(timer, fmt, shape, case, what) -> dict:
+def _time_flash(timer, fmt, shape, case, what, plan_pairs=None) -> dict:
     """Kernel, plain version and SDPA over the dequantized bf16 cache (the
     yardstick), with the bound from the live cache bytes and the score and
     P.V operations these fill levels need."""
@@ -3801,7 +3830,7 @@ def _time_flash(timer, fmt, shape, case, what) -> dict:
     args = _flash_args(case)
     b, s, kh, g, hd = q.shape
     t = shape["t"]
-    ms = timer(lambda: flash_attend(*args, fmt=fmt))
+    ms = timer(lambda: flash_attend(*args, fmt=fmt, plan_pairs=plan_pairs))
     plain_ms = timer(lambda: flash_attend_ref(*args, fmt=fmt), iters=3, warmup=1)
     kd = dequant_tile(c["k"], c.get("ke"), fmt, 0, t).to(torch.bfloat16).transpose(1, 2)  # (B, Kh, T, hd)
     vd = dequant_tile(c["v"], c.get("ve"), fmt, 0, t).to(torch.bfloat16).transpose(1, 2)
@@ -3908,6 +3937,383 @@ def phase_lm_heads(dev, errs) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 17. mesh: serving on several GPUs (models/spmd.py) on the one card
+# ---------------------------------------------------------------------------
+MESH_LAYERS = 2  # grok-1-314b layers of the two-rank run (~2.6 GB of experts; the artifact ~5.5 GB with the vocab)
+MESH_DIR = os.path.join(HERE, "build", "mesh_artifact")
+MESH_SIZES = {"data": 1, "model": 2}  # dp=1,ep=2: the two ranks share cuda:0 over gloo (NCCL takes one rank a device)
+MESH_DECODE_STEPS = 4  # the first decode steps whose logits the two ranks must equal bit for bit
+# grok-1's sites at their published widths split over model = 2 and 4: (JSON row, decode, K, N of the whole
+# site, ranks, launch key of the two-rank run or None where only model = 4 launches it)
+MESH_SITES = [
+    ("fused_qmm_ternary_wq_n3072", "ternary", 6144, 6144, 2, ("fused", 0, 6144, 3072, "m<=8")),
+    ("fused_qmm_ternary_wq_n1536", "ternary", 6144, 6144, 4, None),
+    ("fused_qmm_ternary_wkv_n512", "ternary", 6144, 1024, 2, ("fused", 0, 6144, 512, "m<=8")),
+    ("fused_qmm_ternary_wkv_n256", "ternary", 6144, 1024, 4, None),
+    ("fused_qmm_int8_lm_grok_n65536", "int8", 6144, 131072, 2, ("fused", 0, 6144, 65536, "m<=8")),
+    ("fused_qmm_int8_lm_grok_n32768", "int8", 6144, 131072, 4, None),
+    ("fused_qmm_int8_router_n4", "int8", 6144, 8, 2, ("fused", 0, 6144, 4, "m<=8")),
+]
+MESH_EXPERTS = [  # (JSON row, experts a rank, launch key): grok's gate / up, C 8, every expert routed
+    ("packed_qmm_ternary_experts_e4", 4, ("packed", 4, 6144, 32768, "m<=8")),
+    ("packed_qmm_ternary_experts_e2", 2, None),
+]
+MESH_FLASH = [("flash_attend_int8_kh4", 4, ("kv_int8/decode", 4)), ("flash_attend_int8_kh2", 2, None)]
+MESH_FLASH_SHAPE = dict(b=4, t=1024, kh=8, g=6, hd=128)  # grok's decode tick: 48 q heads over 8 kv heads
+MESH_FULL_DEPTH = [(GROK, 64, 4), (GROK, 64, 8), (ARCTIC, 35, 8)]  # (arch, layers, ep) of the resident reckoning
+MESH_ROWS = [site[0] for site in MESH_SITES + MESH_EXPERTS + MESH_FLASH]
+
+
+def _mesh_launches() -> _KeyedLaunches:
+    """The moe phase's keys (the format entries by (kind, E, K, N, mode))
+    and flash_attend's plan by (mode, kv heads)."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    keyed = _moe_launches()
+    keyed._wrap(fp, "launch_plan", lambda a: (f"{a[0]}/{'decode' if a[2] == 1 else 'prefill'}", a[4]))
+    return keyed
+
+
+def _column_shard(qt, parts: int, r: int):
+    """Rank ``r``'s columns of a site split ``parts`` ways."""
+    cols = qt.n // parts
+    sl = slice(r * cols, (r + 1) * cols)
+    return dataclasses.replace(qt, packed=qt.packed[:, sl].contiguous(), scale_m=qt.scale_m[:, sl].contiguous(),
+                               shape=(qt.k, cols)), sl
+
+
+def _mesh_parity(dev, timer, errs, rows) -> list:
+    """(a) Every shard shape of grok-1's sites: the last rank's launch
+    against its plain version and against the whole site's slice, 0 ulps
+    (flash: 5e-5 against the plain version, bit for bit the whole call's
+    heads); timed at M = 4 beside the bound and the library call."""
+    from repro_torch.kernels.fused_qmm import fused_qmm_ref
+    from repro_torch.kernels.flash_prefill import flash_attend, flash_attend_ref
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.quant.formats import dequantize_weights, get_format
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    failures = []
+    wholes = {}
+    for row, decode, k, n, parts, _ in MESH_SITES:
+        if (decode, k, n) not in wholes:
+            wholes.clear()
+            torch.cuda.empty_cache()
+            wholes[decode, k, n] = _qsite(k, n, decode, gen, dev)
+        qt = wholes[decode, k, n]
+        shard, sl = _column_shard(qt, parts, parts - 1)
+        worst = 0
+        for m in LM_HEAD_ROWS:
+            x = _rows(m, k, gen, dev, torch.bfloat16)
+            whole = _entry(decode)(x, qt.packed, qt.scale_m, qt.scale_e, group=qt.group_size)
+            got = _entry(decode)(x, shard.packed, shard.scale_m, shard.scale_e, group=qt.group_size)
+            want = fused_qmm_ref(x, shard.packed, shard.scale_m, shard.scale_e, decode=decode, group=qt.group_size)
+            torch.cuda.synchronize()
+            worst = max(worst, _ulps(got, want), _ulps(got, whole[:, sl].contiguous()))
+            errs[row] = max(errs.get(row, 0.0), float((got - want).abs().max()))
+        if worst:
+            failures.append(row)
+        w_bf16 = dequantize_weights(shard).to(torch.bfloat16)
+        rows[row] = r = _time_site(timer, shard, w_bf16, decode, "fused", M_ROWS, None, gen, dev)
+        log(f"mesh parity {row} (K={k} N={n}/{parts} {decode} M={LM_HEAD_ROWS}): max ulps {worst} against the plain "
+            f"version and the whole site's columns {'OK' if not worst else 'FAIL'}; M={M_ROWS}: kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms (by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+            f"torch.matmul bf16 {r['library_ms']:.4f} ms")
+        del w_bf16
+    wholes.clear()
+    torch.cuda.empty_cache()
+    entry = get_format("ternary").kernel
+    e, k, n, c = 8, 6144, 32768, 8
+    qt = _expert_qsite(e, k, n, "ternary", gen, dev)
+    x = (torch.randn((e, c, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    xq = quantize_rows(x.view(e * c, k))[0].view(e, c, k)
+    whole = entry(xq, qt.packed, qt.scale_m, group=qt.group_size)
+    for row, el, _ in MESH_EXPERTS:
+        sl = slice(e - el, e)  # the last rank's experts
+        packed, scale_m, xs = (t[sl].contiguous() for t in (qt.packed, qt.scale_m, xq))
+        got = entry(xs, packed, scale_m, group=qt.group_size)
+        want = packed_qmm_ref(xs, packed, scale_m, decode="ternary", group=qt.group_size)
+        torch.cuda.synchronize()
+        worst = max(_ulps(got, want), _ulps(got, whole[sl].contiguous()))
+        errs[row] = float((got - want).abs().max())
+        if worst:
+            failures.append(row)
+        w_bf16 = torch.stack([dequantize_weights(qt.expert(i)).to(torch.bfloat16) for i in range(e - el, e)])
+        xb = x[sl].contiguous()
+        nbytes = xs.numel() + packed.numel() * 4 + scale_m.numel() + el * c * n * 4
+        rows[row] = r = dict(ms=timer(lambda: entry(xs, packed, scale_m, group=qt.group_size)),
+                             plain_ms=timer(lambda: packed_qmm_ref(xs, packed, scale_m, decode="ternary",
+                                                                   group=qt.group_size), iters=3, warmup=1),
+                             library_ms=timer(lambda: torch.bmm(xb, w_bf16)),
+                             **_bound(nbytes, 2 * el * c * k * n, INT8_OPS_PER_S))
+        log(f"mesh parity {row} (E={el} of 8, K={k} N={n} C={c} ternary, every expert routed): max ulps {worst} "
+            f"against the plain loop and the whole stack's experts {'OK' if not worst else 'FAIL'}; kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+            f"torch.bmm bf16 {r['library_ms']:.4f} ms")
+        del w_bf16
+    del qt, x, xq, whole
+    torch.cuda.empty_cache()
+    shape = MESH_FLASH_SHAPE
+    valid = [1, 300, 777, 1024]
+    q_full, c_full, q_start, val, win = _flash_case("kv_int8", shape, gen, dev, s=1, starts=[v - 1 for v in valid],
+                                                    valid=valid)
+    pairs = shape["b"] * shape["kh"]
+    whole = flash_attend(*_flash_args((q_full, c_full, q_start, val, win)), fmt="kv_int8")
+    for row, kh, _ in MESH_FLASH:
+        hs = slice(shape["kh"] - kh, shape["kh"])
+        case = (q_full[:, :, hs].contiguous(), {n_: leaf[:, :, hs].contiguous() for n_, leaf in c_full.items()},
+                q_start, val, win)
+        got = flash_attend(*_flash_args(case), fmt="kv_int8", plan_pairs=pairs)
+        want = flash_attend_ref(*_flash_args(case), fmt="kv_int8")
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        same = torch.equal(got, whole[:, :, hs])
+        errs[row] = err
+        if err > 5e-5 or not same:
+            failures.append(row)
+        rows[row] = r = _time_flash(timer, "kv_int8", dict(shape, kh=kh), case, f"decode, {kh} of 8 kv heads",
+                                    plan_pairs=pairs)
+        log(f"mesh parity {row} ({shape['g'] * kh} q heads over {kh} of 8 kv heads, hd 128, decode planned for the "
+            f"whole call's {pairs} pairs): max err {err:.2e} against the plain version, bit for bit the whole call's "
+            f"heads {same} {'OK' if err <= 5e-5 and same else 'FAIL'}")
+    return failures
+
+
+def _mesh_logits(api, params) -> list:
+    """Logits of MESH_DECODE_STEPS decode steps over STAGED_SLOTS slots and
+    of one 64-token prefill chunk, through ``api`` (sharded or not)."""
+    gen = torch.Generator().manual_seed(SEED + 18)
+    cache = api.init_cache(STAGED_SLOTS, STAGED_MAX_LEN)
+    out = []
+    with torch.inference_mode():
+        for step in range(MESH_DECODE_STEPS):
+            tok = torch.randint(0, api.cfg.vocab, (STAGED_SLOTS, 1), generator=gen).to(torch.int32).to(api.device)
+            pos = torch.tensor([step, 3 * step, step + 5, 0], dtype=torch.int32, device=api.device)
+            lg, cache = api.decode(params, tok, pos, cache)
+            out.append(lg.cpu())
+        chunk = torch.randint(0, api.cfg.vocab, (1, 64), generator=gen).to(torch.int32).to(api.device)
+        lg, _ = api.prefill_chunk(params, chunk, 0, api.init_cache(1, STAGED_MAX_LEN))
+        out.append(lg.cpu())
+    return out
+
+
+def _mesh_serve(api, params, prompts, mesh=None) -> dict:
+    """Both engines on the launcher's traffic: tokens and tokens/s."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request, SchedulerConfig, ServingEngine, StagedEngine
+
+    out = {}
+    for kind in ("lockstep", "staged"):
+        kw = dict(n_slots=STAGED_SLOTS, max_len=STAGED_MAX_LEN, mesh=mesh)
+        eng = (StagedEngine(api, params, sched=SchedulerConfig(prefill_chunk=STAGED_CHUNK), **kw) if kind == "staged"
+               else ServingEngine(api, params, **kw))
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=serve.NEW_TOKENS))
+        done = eng.run(max_ticks=20_000)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        toks = sum(len(r.output) for r in done)
+        out[kind] = {"tokens": {r.uid: r.output for r in done}, "tok_s": toks / dt, "ticks": eng.stats()["tick"]}
+        del eng
+    return out
+
+
+def _mesh_rank(rank: int, world: int, port: int, prompts, out_dir: str) -> None:
+    """One rank of the two-rank run: gloo over tcp on the shared card; its
+    own shards of the artifact, both engines, the decode logits, resident
+    GB, collective bytes and launches by kernel, saved for the parent."""
+    import torch.distributed as dist
+
+    from repro_torch.models import load_servable, spmd
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.collectives import init_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
+    try:
+        mesh = init_mesh(MESH_SIZES, dev)
+        probe = {}
+        for name, fn in (("all_gather", lambda x: collectives.all_gather(x, mesh, "model", 0)),
+                         ("all_to_all", lambda x: collectives.all_to_all(x, mesh, "model", 0, 0)),
+                         ("broadcast", lambda x: collectives.broadcast(x, mesh, "model")),
+                         ("all_reduce", lambda x: collectives.all_reduce(x, mesh, "model"))):
+            try:
+                y = fn(torch.full((4, 3), float(rank + 1), device=dev))
+                probe[name] = f"ok {y.device} {tuple(y.shape)}"
+            except Exception as e:  # the probe's finding is its output; the serving run below decides the phase
+                probe[name] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api, params, _ = load_servable(MESH_DIR, mesh=mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        resident = torch.cuda.memory_allocated(dev) / 1e9
+        keyed = _mesh_launches()
+        try:
+            served = _mesh_serve(api, params, prompts, mesh)
+            launches = dict(keyed.counts)
+            local, state = spmd.install(params, mesh, api.cfg)
+            sharded = spmd.shard_api(api, state)
+            collectives.reset_traffic()
+            logits = _mesh_logits(sharded, local)
+            traffic = collectives.traffic()
+        finally:
+            keyed.close()
+        torch.save({"probe": probe, "load_s": load_s, "resident_gb": resident, "served": served,
+                    "launches": launches, "logits": logits, "traffic": traffic, "layouts": state.layouts,
+                    "heads_local": state.heads_local, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_two_ranks(dev) -> dict:
+    """(b) grok-1-314b at its published widths, MESH_LAYERS layers: the
+    parent writes the dp=1,ep=2 sharded artifact and serves in one process;
+    two spawned ranks share the card over gloo, each reading only its own
+    shards; logits bit-equal, tokens equal.  Returns both ranks' launches
+    and the single process's staged tokens."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch import serve
+    from repro_torch.models import save_servable
+
+    cfg = _ptq_cfg(MESH_LAYERS, arch=GROK, kv_fmt="kv_int8", flash_prefill=True)
+    label = f"mesh {GROK} {cfg.n_layers}L"
+    qparams, plan, api = _boot_family(dev, cfg, label)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    step = save_servable(MESH_DIR, api, qparams, plan, mesh=MESH_SIZES)
+    shards = sum(".shard" in f for f in os.listdir(step))
+    log(f"{label}: sharded artifact for {MESH_SIZES} in {time.perf_counter() - t0:.2f} s: "
+        f"{sum(os.path.getsize(os.path.join(step, f)) for f in os.listdir(step)) / 1e9:.2f} GB, {shards} shard files")
+    prompts = serve.draw_prompts(8, cfg.vocab)
+    single = _mesh_serve(api, qparams, prompts)
+    single_logits = _mesh_logits(api, qparams)
+    del qparams, api
+    _free()
+    out_dir = os.path.join(HERE, "build", "mesh_ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(2, _free_port(), prompts, out_dir), nprocs=2, join=True)
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(2)]
+    log(f"{label}: two ranks on one card over gloo, {time.perf_counter() - t0:.1f} s with their starts; collectives "
+        f"on CUDA tensors {ranks[0]['probe']}")
+    failures = []
+    r0 = ranks[0]
+    equal = [torch.equal(a, b) for a, b in zip(r0["logits"], single_logits)]
+    log(f"{label}: decode steps {MESH_DECODE_STEPS} x {STAGED_SLOTS} slots and a 64-token chunk: logits bit-equal to "
+        f"the single process {equal} (ranks agree: {all(torch.equal(a, b) for a, b in zip(r0['logits'], ranks[1]['logits']))})")
+    if not all(equal) or len(equal) != MESH_DECODE_STEPS + 1:
+        failures.append("logits")
+    for kind in ("lockstep", "staged"):
+        same = all(r["served"][kind]["tokens"] == single[kind]["tokens"] for r in ranks)
+        log(f"{label} {kind}: tokens equal to the single process on both ranks {same}; tokens/s two ranks "
+            f"{r0['served'][kind]['tok_s']:.2f}, one process {single[kind]['tok_s']:.2f} "
+            f"({r0['served'][kind]['ticks']} dispatches)")
+        if not same:
+            failures.append(f"{kind} tokens")
+    steps = MESH_DECODE_STEPS + 1
+    for r, res in enumerate(ranks):
+        log(f"{label} rank {r}: load {res['load_s']:.2f} s, resident {res['resident_gb']:.2f} GB after load, peak "
+            f"{res['peak_gb']:.2f} GB; collective bytes a call (decode steps and the chunk, mean) "
+            f"{ {k: v // steps for k, v in res['traffic'].items()} }; layouts {res['layouts']}, heads local "
+            f"{res['heads_local']}; launches by kernel {res['launches']}")
+    if failures:
+        raise SystemExit(f"mesh: the two-rank run differs from the single process: {failures}")
+    counts = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in set().union(*(r["launches"] for r in ranks))}
+    return counts, single["staged"]["tokens"]
+
+
+def _mesh_nccl(single: dict) -> None:
+    """(c) The launcher under torch.distributed.run on one NCCL rank with
+    --mesh dp=1,ep=1 prints ``single``: the single process's staged tokens
+    on the launcher's traffic (the launcher's staged engine, same slots,
+    max_len, chunk and policy)."""
+    argv = ["--artifact", MESH_DIR, "--kv-fmt", "kv_int8", "--flash-decode", "--flash-prefill", "--max-len",
+            str(STAGED_MAX_LEN), "--prefill-chunk", str(STAGED_CHUNK), "--requests", "8", "--slots", str(STAGED_SLOTS)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_port",
+                        str(_free_port()), "-m", "repro_torch.launch.serve", *argv, "--mesh", "dp=1,ep=1"],
+                       capture_output=True, text=True, timeout=300, env=env, cwd=HERE)
+    lines = [line.strip() for line in r.stdout.splitlines() if line.strip().startswith("req ")]
+    want = [f"req {u}: {single[u]}" for u in sorted(single)][:4]
+    log(f"mesh launcher on NCCL (torch.distributed.run, 1 rank, --mesh dp=1,ep=1): exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; tokens equal to the single process's {lines == want}")
+    if r.returncode or lines != want:
+        raise SystemExit(f"mesh: the NCCL launcher failed or differs:\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+
+
+def _rank_gb(arch: str, n_layers: int, ep: int) -> float:
+    """(d) A rank's packed weights at full depth under ep, reckoned from the
+    serving rules over the artifact's abstract tree (one layer made on the
+    meta device, its layer axis set to ``n_layers``): nothing allocated."""
+    from repro_torch.core.quantizer import QTensor
+    from repro_torch.models.model_zoo import abstract_quantized
+    from repro_torch.parallel.sharding import qtensor_shardings
+    from repro_torch.training.checkpoint import stacked_shapes
+
+    cfg = _ptq_cfg(1, arch=arch)
+    shapes = stacked_shapes(abstract_quantized(cfg))
+    sizes = {"data": 1, "model": ep}
+    specs = qtensor_shardings(shapes, sizes)
+
+    def nbytes(t, spec, stacked):
+        n = t.numel() * t.element_size() * (n_layers if stacked else 1)
+        return n / math.prod(sizes[a] for e in spec if e for a in ((e,) if isinstance(e, str) else e))
+
+    def walk(tree, spec, stacked=False):
+        if isinstance(tree, dict):
+            return sum(walk(tree[k], spec[k], stacked or k == "blocks") for k in tree)
+        if isinstance(tree, QTensor):
+            return sum(nbytes(getattr(tree, f), getattr(spec, f), stacked) for f in ("packed", "scale_m", "scale_e"))
+        return nbytes(tree, spec, stacked)
+
+    return walk(shapes, specs) / 1e9
+
+
+def phase_mesh(dev, errs) -> tuple:
+    """(a) kernel parity and times at grok-1's shard shapes, (b) the
+    two-rank run, (c) the NCCL launcher, (d) the full-depth reckoning:
+    (launches of the two-rank run by JSON row, rows)."""
+    t0 = time.perf_counter()
+    timer = _Timer(dev)
+    rows: dict = {}
+    failures = _mesh_parity(dev, timer, errs, rows)
+    if failures:
+        raise SystemExit(f"mesh parity failed: {failures}")
+    counts, single = _mesh_two_ranks(dev)
+    _mesh_nccl(single)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    for arch, layers, ep in MESH_FULL_DEPTH:
+        gb = _rank_gb(arch, layers, ep)
+        log(f"mesh reckoning {arch} {layers} layers, ternary group 64, ep={ep}: {gb:.2f} GB of packed weights a rank "
+            f"({'fits' if gb < 80 else 'does not fit'} an 80 GB card, {80 - gb:.1f} GB left for caches and work)")
+    keys = {row: key for row, *_, key in MESH_SITES}
+    keys.update({row: key for row, _, key in MESH_EXPERTS + MESH_FLASH})
+    own = {row: (counts.get(key, 0) if key else 0) for row, key in keys.items()}
+    missing = [row for row, key in keys.items() if key and own[row] <= 0]
+    log(f"mesh: phase {time.perf_counter() - t0:.1f} s; launches of the two-rank run {own} (the model = 4 rows: "
+        f"parity and times only, no run launches them)")
+    if missing:
+        raise SystemExit(f"mesh: the two-rank run never launched {missing}")
+    return own, rows
+
+
 KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it replaces); first match wins
     "fused_qmm_int8_prefill": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/int8_matmul.py:53"),
     "fused_qmm_ternary": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/ternary_matmul.py:63"),
@@ -3926,7 +4332,8 @@ KERNEL_SOURCES = {  # JSON row prefix -> (source in the repo, the TPU kernel it 
 
 def _kernel_line(errs, launches, rows) -> dict:
     out = []
-    for name in list(MODES) + list(FAMILY_ROWS) + list(MOE_ROWS) + list(VLM_SSM_ROWS) + list(ENCDEC_ROWS):
+    for name in (list(MODES) + list(FAMILY_ROWS) + list(MOE_ROWS) + list(VLM_SSM_ROWS) + list(ENCDEC_ROWS)
+                 + MESH_ROWS):
         source, replaces = next(v for prefix, v in KERNEL_SOURCES.items() if name.startswith(prefix))
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3935,7 +4342,13 @@ def _kernel_line(errs, launches, rows) -> dict:
     return {"kernels": out}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="GPU smoke run of the port; with no arguments every phase")
+    ap.add_argument("--only", default=None, metavar="PHASE",
+                    help="build, then this one phase alone (mesh), for iterating on it; no kernels line")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -3949,6 +4362,13 @@ def main() -> None:
             seconds[name] = round(time.perf_counter() - t0, 1)
 
     timed("build", phase_build)
+    if args.only == "mesh":
+        timed("mesh", phase_mesh, dev, {})
+        log(f"phase seconds {seconds}")
+        log(smi)
+        return
+    if args.only is not None:
+        raise SystemExit(f"--only takes mesh, got {args.only!r}")
     errs, launches = timed("parity", phase_parity, dev)
     for name, phase in (("main", phase_main), ("staged", phase_staged), ("formats", phase_formats),
                         ("serve", phase_serve), ("artifact", phase_artifact)):
@@ -3964,6 +4384,9 @@ def main() -> None:
     timed("train", phase_train, dev)
     rows = timed("timings", phase_timings, dev)
     rows.update(timed("lm_heads", phase_lm_heads, dev, errs))
+    own, mesh_rows = timed("mesh", phase_mesh, dev, errs)
+    launches.update(own)
+    rows.update(mesh_rows)
     log(f"phase seconds {seconds}")
     line = _kernel_line(errs, launches, rows)
     if not all(math.isfinite(v) for k in line["kernels"] for v in k.values() if isinstance(v, float)):
@@ -3983,7 +4406,10 @@ def main() -> None:
         f"launches those of their shape in the vlm_ssm phase's serving runs; the encdec rows (*_k512*, *_n51968, "
         f"*_hd64) are single sites or calls, their launches those of their shape in the encdec phase's serving runs; "
         f"the lm_head rows (fused_qmm_int8_lm_*: the int8 loop) are each family's int8 lm_head at M={M_ROWS}, their "
-        f"launches those of their shape in the families, moe and vlm_ssm phases' serving runs")
+        f"launches those of their shape in the families, moe and vlm_ssm phases' serving runs; the mesh rows "
+        f"(*_n3072, *_n1536, *_n512, *_n256, *_n65536, *_n32768, *_router_n4, *_experts_e4 / _e2, *_kh4 / _kh2) are the "
+        f"last rank's shard of grok-1's sites at model = 2 and 4 at M={M_ROWS} (C 8; flash: the decode tick), their "
+        f"launches the two-rank run's (0 for the model = 4 shapes, which no run launches)")
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,6 +61,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from collections import Counter
+from typing import Optional
 
 import torch
 
@@ -195,13 +196,18 @@ def decode_split(pairs: int, t: int, sms: int = 132):
     return -(-t // keys), keys
 
 
-def launch_plan(fmt: str, b: int, s: int, t: int, kh: int, g: int, hd: int, sms: int = 132) -> dict:
+def launch_plan(fmt: str, b: int, s: int, t: int, kh: int, g: int, hd: int, sms: int = 132,
+                plan_pairs: Optional[int] = None) -> dict:
     """Grid, shared memory and decode partials (floats: one (m, l, P.V)
-    row per split and query row) of one call, as the kernel sizes them."""
+    row per split and query row) of one call, as the kernel sizes them.
+    ``plan_pairs``: the (batch, kv head) pairs a decode's splits are
+    planned for (default: this call's b * kh); a rank holding part of a
+    sharded call's pairs plans as the whole call does, so each pair's keys
+    split alike and its result is the whole call's bit for bit."""
     if s > 1:
         return dict(grid=(b * kh, row_blocks(s, g), 1), smem=prefill_smem_bytes(fmt, hd), splits=1, keys=KEY_TILE,
                     part_floats=0, smem_cap=_MAX_SMEM)
-    splits, keys = decode_split(b * kh, t, sms)
+    splits, keys = decode_split(plan_pairs or b * kh, t, sms)
     return dict(grid=(b * kh, splits, 1), smem=decode_smem_bytes(hd, keys), splits=splits, keys=keys,
                 part_floats=b * kh * splits * g * (hd + 2), smem_cap=_DECODE_MAX_SMEM)
 
@@ -230,9 +236,10 @@ def _check_cache(fmt, k, v, ke, ve, b, t, kh, hd):
 
 
 def flash_attend(q, k, v, ke, ve, q_start, valid, window, *, fmt: str,
-                 block_q: int = 64, block_k: int = 128) -> torch.Tensor:
+                 block_q: int = 64, block_k: int = 128, plan_pairs: Optional[int] = None) -> torch.Tensor:
     """Returns (B, S, Kh, G, hd) float32.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise.  ``plan_pairs``: see
+    ``launch_plan``."""
     _check_fmt(fmt)
     if q.device.type == "cpu":
         return flash_attend_ref(q, k, v, ke, ve, q_start, valid, window, fmt=fmt,
@@ -245,7 +252,7 @@ def flash_attend(q, k, v, ke, ve, q_start, valid, window, *, fmt: str,
     for name, c, n in (("q_start", q_start, b), ("valid", valid, b), ("window", window, 1)):
         if c.dtype != torch.int32 or c.numel() != n:
             raise ValueError(f"{name} must hold {n} int32")
-    plan = launch_plan(fmt, b, s, t, kh, g, hd, _build.sm_count(q.device))
+    plan = launch_plan(fmt, b, s, t, kh, g, hd, _build.sm_count(q.device), plan_pairs)
     if plan["smem"] > plan["smem_cap"]:
         raise ValueError(f"{fmt} head_dim {hd} needs {plan['smem']} bytes of shared memory (max {plan['smem_cap']})")
     for c in [q, *cache, q_start, valid, window]:

@@ -42,22 +42,38 @@ injects seeded faults (``serving/faults.py``), ``--retries`` budgets
 quarantine retries, ``--deadline-ms / --max-queue / --ttft-slo-ms`` gate
 admission and ``--tpot-slo-ms`` arms overload degradation.
 
-``--mesh`` and ``--compile-cache`` are accepted but not offered: each exits
-naming what it waits for.
+``--mesh SPEC`` (``dp=2,ep=2``; aliases dp -> data, ep / tp -> model)
+serves the dense and MoE families across ranks, one launcher process a
+rank under ``torch.distributed.run``; the mesh size must equal
+``WORLD_SIZE``.  Each rank runs on ``cuda:LOCAL_RANK`` (NCCL) unless
+``--device`` says otherwise (``--device cpu``: gloo), holds only its shards
+(read from its own shard files with ``--artifact``; ``--save-artifact``
+writes shard files, from rank 0) and runs the same host loop; rank 0
+prints the report and the tokens:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 4 \
+        -m repro_torch.launch.serve --artifact DIR --device cpu --mesh dp=2,ep=2
+
+``--compile-cache`` is accepted but not offered: it exits naming why.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import os
 import time
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core.quantizer import QTensor
+from repro_torch.launch.mesh import init_distributed, mesh_size, parse_mesh_spec
 from repro_torch.models import (
     build_model, init_quantized, load_servable, make_smoke_batch, quantize_and_plan, save_servable,
 )
@@ -72,7 +88,6 @@ SEED = 0  # weights (torch.Generator) and prompts (numpy), as the reference's PR
 PROMPT_TOKENS, NEW_TOKENS = 6, 8
 CALIB_BATCH, CALIB_SEQ, CALIB_SEED = 2, 16, 100  # --calibrate's batches: 2 x 16 tokens, seeds 100 + i
 UNPORTED = {  # flag -> the step it waits for
-    "mesh": "multi-GPU serving (ROADMAP Queue A step 10)",
     "compile_cache": "a counterpart of XLA's persistent compilation cache, which the port does not have "
                      "(its kernels build once per checkout into build/kernels)",
 }
@@ -134,8 +149,10 @@ def calibration_batches(cfg, n: int, device: torch.device):
             for i in range(n)]
 
 
-def boot_quantize(args, device: torch.device):
-    """Quantize on boot: (api, qparams, plan), calibrated with ``--calibrate``."""
+def boot_quantize(args, device: torch.device, mesh=None):
+    """Quantize on boot: (api, qparams, plan), calibrated with ``--calibrate``
+    (on a mesh every rank makes the whole model; the engine keeps its
+    shards)."""
     cfg = build_config(args)
     api = build_model(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -148,9 +165,10 @@ def boot_quantize(args, device: torch.device):
     fp_mb, q_mb = weight_mb(qparams, getattr(torch, cfg.dtype))
     print(f"arch={cfg.name} weights {fp_mb:.1f} MB -> {q_mb:.1f} MB ({fp_mb / q_mb:.1f}x)  plan: "
           f"{len(plan.site_paths)} sites, {len(plan.act_exponents)} calibrated")
-    if args.save_artifact:
-        out = save_servable(args.save_artifact, api, qparams, plan)
-        print(f"saved packed artifact to {out} (serve it with --artifact {args.save_artifact})")
+    if args.save_artifact and (mesh is None or mesh.rank == 0):
+        out = save_servable(args.save_artifact, api, qparams, plan, mesh=mesh)
+        print(f"saved packed artifact to {out}{'' if mesh is None else ' (per-host shards)'} "
+              f"(serve it with --artifact {args.save_artifact})")
     if args.plan_json:
         with open(args.plan_json, "w") as f:
             f.write(plan.to_json())
@@ -158,16 +176,18 @@ def boot_quantize(args, device: torch.device):
     return api, qparams, plan
 
 
-def boot_from_artifact(artifact_dir: str, device: torch.device, backend: Optional[str] = None):
-    """Cold start: (api, qparams, plan) from a packed on-disk artifact."""
+def boot_from_artifact(artifact_dir: str, device: torch.device, backend: Optional[str] = None, mesh=None):
+    """Cold start: (api, qparams, plan) from a packed on-disk artifact (on a
+    mesh: this rank's shards)."""
     t0 = time.perf_counter()
-    api, qparams, art = load_servable(artifact_dir, device=device, backend=backend)
+    api, qparams, art = load_servable(artifact_dir, mesh=mesh, device=device, backend=backend)
     plan = art.plan
     plan_str = (f"plan: {len(plan.site_paths)} sites, {len(plan.act_exponents)} calibrated" if plan is not None
                 else "plan: none (unquantized artifact)")
     _, q_mb = weight_mb(qparams, getattr(torch, api.cfg.dtype))
+    mesh_str = "" if mesh is None else f" onto mesh {dict(mesh.shape)} (per-host shards assembled)"
     print(f"arch={api.cfg.name} cold-started from {art.path} in {time.perf_counter() - t0:.2f}s: {q_mb:.1f} MB "
-          f"packed, {plan_str} (fp32 never materialized)")
+          f"packed, {plan_str} (fp32 never materialized){mesh_str}")
     return api, qparams, plan
 
 
@@ -209,7 +229,8 @@ def parser() -> argparse.ArgumentParser:
                     help="qdense backend the plan carries: cuda (the kernels; plain versions on the CPU), "
                          "ref (the bit-exact oracle), auto (cuda; the default); with --artifact it replaces "
                          "the artifact plan's")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain PyTorch versions)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; under --mesh cuda:LOCAL_RANK) or cpu (the plain PyTorch versions)")
     # fault tolerance: deadlines, load shedding, overload SLOs, chaos
     ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
                     help="default per-request deadline; past it a request is expired, queued or in flight")
@@ -224,9 +245,11 @@ def parser() -> argparse.ArgumentParser:
                     help="retry budget of fault-quarantined requests (re-queued with exponential backoff)")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
                     help="inject seeded faults, e.g. 'rate=0.01,kinds=nan_logits|kv_corrupt|stall_tick,seed=0'")
-    # accepted so that the reference's command lines parse; each exits naming its step
-    ap.add_argument("--mesh", default=None, metavar="SPEC", help="not ported yet")
-    ap.add_argument("--compile-cache", default=None, metavar="DIR", help="not ported yet")
+    ap.add_argument("--mesh", default=None, metavar="SPEC",
+                    help="serve across ranks under torch.distributed.run, e.g. dp=2,ep=2 (aliases dp -> data, "
+                         "ep / tp -> model); the mesh size must equal WORLD_SIZE")
+    # accepted so that the reference's command lines parse; it exits naming why
+    ap.add_argument("--compile-cache", default=None, metavar="DIR", help="not ported")
     return ap
 
 
@@ -238,12 +261,37 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
             ap.error(f"--{flag.replace('_', '-')} is not ported yet: it waits for {step}")
     if bool(args.artifact) == bool(args.arch):
         ap.error("exactly one of --arch or --artifact is required")
-    device = torch.device(args.device)
+    mesh = None
+    if args.mesh:
+        try:
+            n = mesh_size(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        if n != world:
+            ap.error(f"--mesh {args.mesh} has {n} ranks but WORLD_SIZE is {world}: run one launcher a rank, "
+                     f"python -m torch.distributed.run --nproc_per_node {n} -m repro_torch.launch.serve ...")
+        device = torch.device(args.device or f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+        init_distributed(device)
+        mesh = parse_mesh_spec(args.mesh, device)
+        dist.barrier()  # every rank's group up (NCCL: its communicator) before boot
+    else:
+        device = torch.device(args.device or "cuda")
+    try:
+        # every rank serves; rank 0 reports
+        with contextlib.nullcontext() if mesh is None or mesh.rank == 0 else contextlib.redirect_stdout(io.StringIO()):
+            return _serve(args, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _serve(args, device: torch.device, mesh) -> ServeRun:
     t0 = time.perf_counter()
     if args.artifact:
-        api, qparams, _ = boot_from_artifact(args.artifact, device, args.backend)
+        api, qparams, _ = boot_from_artifact(args.artifact, device, args.backend, mesh)
     else:
-        api, qparams, _ = boot_quantize(args, device)
+        api, qparams, _ = boot_quantize(args, device, mesh)
     api = serving_view(api, args, device)
     cfg = api.cfg
     # the banner always states both flash knobs
@@ -255,7 +303,7 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
     eng_kw = dict(n_slots=args.slots, max_len=args.max_len, sampler=SamplerConfig(temperature=args.temperature),
                   admission=AdmissionConfig(max_queue=args.max_queue, ttft_slo_ms=args.ttft_slo_ms,
                                             deadline_ms=args.deadline_ms),
-                  health=HealthConfig(overload_tpot_ms=args.tpot_slo_ms), faults=faults)
+                  health=HealthConfig(overload_tpot_ms=args.tpot_slo_ms), faults=faults, mesh=mesh)
     if args.engine == "staged":
         eng = StagedEngine(api, qparams, sched=SchedulerConfig(prefill_chunk=args.prefill_chunk, policy=args.policy),
                            **eng_kw)

@@ -17,6 +17,12 @@ Read paths over the cache, as in the reference:
 
 Without a cache (or without flash) S > 1 attends densely over the chunk,
 or in online-softmax chunks of keys when T > ``chunk``.
+
+On a mesh the reference routes every cache attend to its XLA oracle
+(``_flash_routable``: a pallas_call is not partitionable over the kv-head
+or sequence axes).  The port's flash kernel runs per rank on the rank's kv
+heads instead, which are whole on the rank (``models/spmd.py``); a cache
+split on its sequence raises before anything runs.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import kv_cache, layers
+from repro_torch.models import kv_cache, layers, spmd
 from repro_torch.models.layers import dense
 from repro_torch.quant.plan import QuantCtx
 
@@ -131,11 +137,13 @@ def _flash_cache_path(q, cache, fmt, q_pos, valid, window, cfg):
     g = cfg.n_heads // kh
     qf = q.reshape(b, s, kh, g, hd).to(torch.float32).contiguous()
     qs = q_pos[:, 0] if q_pos.ndim == 2 else q_pos.reshape(-1)[0].expand(b)
+    state = spmd.active()
+    plan = {} if state is None else {"plan_pairs": spmd.whole_pairs(b * kh, state)}  # a rank plans the whole call
     out = flash_attend(
         qf, cache["k"], cache["v"], cache.get("ke"), cache.get("ve"),
         qs.to(torch.int32).reshape(b, 1).contiguous(),
         valid.to(torch.int32).reshape(b, 1).contiguous(),
-        _win_arg(window, q.device), fmt=fmt,
+        _win_arg(window, q.device), fmt=fmt, **plan,
     )
     return out.reshape(b, s, cfg.n_heads * hd)
 
@@ -172,14 +180,25 @@ def attention(
     its K/V are written at ``cache_index``, so earlier chunks of the same
     prompt stay visible (chunked prefill).  ``kv_src`` (B, T, d) is a
     cross-attention source: K and V project it, and no RoPE applies, as
-    with ``rope=False``."""
+    with ``rope=False``.  On a mesh whose cache holds the rank's kv heads
+    (``models/spmd.py``) q / k / v are the rank's heads and the head
+    outputs are all-gathered before ``wo``."""
+    state = spmd.active()
+    heads_local = state is not None and state.heads_local
+    if heads_local:
+        cfg = spmd.local_cfg(cfg, state)
     hd = cfg.hd()
     g = cfg.n_heads // cfg.n_kv_heads
     src = x if kv_src is None else kv_src
 
-    q = _split_heads(dense(p["wq"], x, f"{path}/wq", ctx), cfg.n_heads)
-    k = _split_heads(dense(p["wk"], src, f"{path}/wk", ctx), cfg.n_kv_heads)
-    v = _split_heads(dense(p["wv"], src, f"{path}/wv", ctx), cfg.n_kv_heads)
+    def wo(out):
+        if heads_local:
+            out = spmd.gather_model(out, state)
+        return dense(p["wo"], out, f"{path}/wo", ctx)
+
+    q = _split_heads(dense(p["wq"], x, f"{path}/wq", ctx, local_out=heads_local), cfg.n_heads)
+    k = _split_heads(dense(p["wk"], src, f"{path}/wk", ctx, local_out=heads_local), cfg.n_kv_heads)
+    v = _split_heads(dense(p["wv"], src, f"{path}/wv", ctx, local_out=heads_local), cfg.n_kv_heads)
     if cfg.qk_norm:
         q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -212,11 +231,11 @@ def attention(
             out = _attend_dense(qh, ck, cv, bias, kscale=kscale, vscale=vscale)
             out = out.reshape(*x.shape[:2], cfg.n_heads * hd)
         out = out.to(x.dtype)
-        return dense(p["wo"], out, f"{path}/wo", ctx), cache
+        return wo(out), cache
 
     if cache is not None and x.shape[1] > 1 and causal and kv_src is None and cfg.flash_prefill:
         out = _flash_self_path(q, k, v, window, cfg).to(x.dtype)
-        return dense(p["wo"], out, f"{path}/wo", ctx), cache
+        return wo(out), cache
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
@@ -230,4 +249,4 @@ def attention(
     else:
         out = _attend_dense_mha(q, k, v, torch.zeros((), dtype=torch.float32, device=x.device))
     out = out.reshape(*x.shape[:2], cfg.n_heads * hd).to(x.dtype)
-    return dense(p["wo"], out, f"{path}/wo", ctx), cache
+    return wo(out), cache

@@ -29,6 +29,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import ste
 from repro_torch.core.quantizer import QTensor
+from repro_torch.models import spmd
 from repro_torch.quant import api as quant_api  # the module: importable while repro_torch.quant initializes
 from repro_torch.quant.backends import apply_act, qdense
 from repro_torch.quant.plan import QuantCtx
@@ -55,8 +56,25 @@ def init_dense(gen, d_in: int, d_out: int, bias: bool, dtype, device, path: str 
 
 
 def dense(p: Params, x: torch.Tensor, path: str, ctx: QuantCtx,
-          act: Optional[str] = None) -> torch.Tensor:
-    """Projection x @ W (+ b) (+ activation ``act``)."""
+          act: Optional[str] = None, local_out: bool = False) -> torch.Tensor:
+    """Projection x @ W (+ b) (+ activation ``act``).  On a mesh
+    (``models/spmd.py``) a site split on K runs whole on its gathered
+    weight, and one split on N runs on the rank's columns, gathered back
+    unless ``local_out`` (attention's heads local to the rank)."""
+    state = spmd.active()
+    dim = None if state is None else state.layout(path)
+    if dim == -2:
+        return _dense({**p, "w": spmd.gather_weight(p["w"], state.mesh, -2)}, x, path, ctx, act)
+    if dim == -1:
+        w = p["w"]
+        local = {**p, "b": spmd.local_bias(p["b"], w.n if isinstance(w, QTensor) else w.shape[-1], state)} \
+            if "b" in p else p
+        y = _dense(local, x, path, ctx, act)
+        return y if local_out else spmd.gather_model(y, state)
+    return _dense(p, x, path, ctx, act)
+
+
+def _dense(p: Params, x: torch.Tensor, path: str, ctx: QuantCtx, act: Optional[str]) -> torch.Tensor:
     w = p["w"]
     if ctx.observer is not None:  # calibration pass: record this site's range
         quant_api.observe_site(ctx.observer, path, x)
@@ -174,7 +192,10 @@ def init_embedding(gen, vocab: int, d: int, dtype, device, path: str = "embed",
     return {"table": leaf(path, "table", table)}
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+def embed(p: Params, tokens: torch.Tensor, path: str = "embed") -> torch.Tensor:
+    state = spmd.active()
+    if state is not None and state.layout(f"{path}/table") is not None:  # the vocab split over 'model'
+        return spmd.embed(p["table"], tokens, state)
     return p["table"][tokens]
 
 

@@ -45,7 +45,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, config_from_dict, config_to_dict
 from repro_torch.convert import LAYER_LISTS
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, hybrid, ssm_lm, transformer, vlm
+from repro_torch.models import encdec, hybrid, spmd, ssm_lm, transformer, vlm
 from repro_torch.quant import api as quant_api
 from repro_torch.quant.backends import BACKENDS
 from repro_torch.quant.plan import QuantCtx, QuantPlan, compile_policy
@@ -201,9 +201,20 @@ def init_quantized(api: ModelApi, gen: torch.Generator) -> Tuple[Any, QuantPlan,
     return params, plan, api.with_plan(plan)
 
 
+def abstract_quantized(cfg: ArchConfig) -> Any:
+    """The PTQ tree of ``cfg`` (ternary and int8 sites) over ``meta``
+    tensors: every leaf's shape and dtype, nothing allocated -- what the
+    sharding rules reckon a rank's resident bytes from at full depth."""
+    rules = QuantPlan(policy=make_ctx(cfg).policy)
+    return _INIT[cfg.family](torch.Generator(), cfg, torch.device("meta"),
+                             leaf=lambda path, key, val: quant_api.quantize_leaf(path, key, val, rules))
+
+
 def save_servable(artifact_dir: str, api: ModelApi, qparams, plan: QuantPlan, mesh=None) -> str:
     """Persist (qparams, plan) with the serialized ArchConfig as a
-    self-contained artifact; returns the step directory."""
+    self-contained artifact; returns the step directory.  With ``mesh`` (a
+    whole tree, any mesh the rules take) the payloads the serving rules
+    split are written as shard files."""
     return quant_api.save_artifact(artifact_dir, qparams, plan, extra={"arch_config": config_to_dict(api.cfg)},
                                    mesh=mesh)
 
@@ -211,19 +222,26 @@ def save_servable(artifact_dir: str, api: ModelApi, qparams, plan: QuantPlan, me
 def load_servable(artifact_dir: str, mesh=None, *, device=None,
                   backend: Optional[str] = None) -> Tuple[ModelApi, Any, "quant_api.Artifact"]:
     """Cold-start from a packed artifact: (api, qparams, artifact) on
-    ``device`` (the card unless ``"cpu"``).  The model is rebuilt from the
+    ``device`` (the card unless ``"cpu"``; on a mesh, the mesh's device).
+    With ``mesh`` (a ``parallel.collectives.Mesh``) the qparams are this
+    rank's shards (``models.spmd.RankLocal``), read from its own shard
+    files where the artifact's layout matches the mesh.  The model is rebuilt from the
     artifact's own ArchConfig and bound to its plan (calibrated exponents
     included); stacked layers split into the port's per-layer lists.  The
     plan's backend must be one of the port's, or ``backend`` replaces it
     (an artifact of the reference's launcher names ``xla``)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None or mesh is None else mesh.device)
     art = quant_api.load_artifact(artifact_dir, mesh=mesh, device=dev)
     cfg_dict = art.extra.get("arch_config")
     if cfg_dict is None:
         raise ValueError(f"artifact at {artifact_dir!r} carries no 'arch_config' metadata; save it with "
                          "repro_torch.models.save_servable")
+    cfg = config_from_dict(cfg_dict)
     params = {k: ckpt.unstack(v) if k in LAYER_LISTS else v for k, v in art.params.items()}
-    api = build_model(config_from_dict(cfg_dict), device=dev)
+    if mesh is not None:
+        spmd.check_family(cfg, mesh)
+        params = spmd.RankLocal(params, spmd.layer_specs(art.shardings))
+    api = build_model(cfg, device=dev)
     plan = art.plan
     if plan is not None:
         if backend is not None:

@@ -22,10 +22,23 @@ max|x|); QAT (``mode="qat"``), each expert's weights through the weight
 STE and the buffer through the activation STE, then the einsum, as the
 reference's ``_quantize_expert_weights`` / ``_expert_matmul`` do.
 ``aux_load_balance_loss`` is the Switch-style auxiliary loss a trainer may
-add.  What waits: expert parallelism over a mesh (the reference's
-``expert_ffn_ep``, ``_use_ep``, ``_ep_cap_axes``) with multi-GPU serving
-(ROADMAP A10).  The reference's ``FLAT_CHUNKING`` toggle (a perf
-experiment, off by default) is not ported.
+add.  The reference's ``FLAT_CHUNKING`` toggle (a perf experiment, off by
+default) is not ported.
+
+On a mesh (``models/spmd.py``) the layer first all-gathers a batch split
+over the data axes, so the router, the capacity C and the drops are the
+whole batch's, as the reference's global sort over every replica makes
+them.  Expert parallelism: the reference takes its shard_map EP route only
+under its ``pallas_ep`` backend; the port has ``ref`` and ``cuda`` and
+takes EP on either, whenever a mesh with ``model`` > 1 splits the experts
+(``_use_ep``: the reference's ``ep_divisible`` over ``_ep_cap_axes``).
+Every rank of the model group holds the whole capacity buffer (its
+activations are replicated), so no dispatch collective is needed: each
+rank runs its experts' slice of the buffer through one ``quantize_rows``
+and one packed launch a site, casts to the model dtype and all-gathers the
+(E, C, d) result over 'model' (``quant.backends.expert_ffn_ep``).  Expert
+stacks the rules split on K or N instead (E not divisible by 'model') run
+each site on its gathered weight or its own columns, as ``layers.dense``.
 """
 from __future__ import annotations
 
@@ -36,9 +49,10 @@ import torch
 
 from repro_torch.core import ste
 from repro_torch.core.quantizer import QTensor
-from repro_torch.models import layers
+from repro_torch.models import layers, spmd
+from repro_torch.parallel import sharding
 from repro_torch.quant import api as quant_api  # the module: importable while repro_torch.quant initializes
-from repro_torch.quant.backends import apply_act, qmatmul
+from repro_torch.quant.backends import apply_act, ep_divisible, expert_ffn_ep, qmatmul
 from repro_torch.quant.plan import QuantCtx
 
 
@@ -72,8 +86,13 @@ def _expert_matmul(w, x: torch.Tensor, path: str, ctx: QuantCtx) -> torch.Tensor
         quant_api.observe_site(ctx.observer, path, x)
     if isinstance(w, QTensor):
         prec = ctx.resolve(path)
-        return qmatmul(x, w, backend=ctx.backend, act_bits=prec.act_bits if prec else 8,
-                       act_exponent=ctx.act_exponent(path))
+        state = spmd.active()
+        dim = None if state is None else state.layout(path)
+        if dim == -2:  # the stack split on K: run it whole
+            w = spmd.gather_weight(w, state.mesh, -2)
+        y = qmatmul(x, w, backend=ctx.backend, act_bits=prec.act_bits if prec else 8,
+                    act_exponent=ctx.act_exponent(path))
+        return spmd.gather_model(y, state) if dim == -1 else y
     prec = ctx.resolve(path) if ctx.mode == "qat" else None
     if prec is not None and prec.quantized:
         wq = torch.stack([ste.weights_ste(we.to(torch.float32), prec.w_bits, prec.group_size, prec.filter_size,
@@ -83,8 +102,43 @@ def _expert_matmul(w, x: torch.Tensor, path: str, ctx: QuantCtx) -> torch.Tensor
     return torch.einsum("ecd,edf->ecf", x, w)
 
 
+def _ep_cap_axes(mesh, c: int):
+    """The data axes the reference shards the capacity axis over besides
+    the expert axis (only where C stays divisible)."""
+    sizes = sharding.mesh_sizes(mesh)
+    axes = tuple(a for a in ("pod", "data") if a in sizes)
+    total = sizes.get("model", 1)
+    for a in axes:
+        total *= sizes[a]
+    return axes if (axes and c % total == 0) else ()
+
+
+def _use_ep(experts, e: int, c: int, ctx: QuantCtx) -> bool:
+    """Run this chunk's expert FFN expert-parallel?  PTQ (QTensor weights)
+    under an ambient mesh whose expert axis divides the (E, C) buffer."""
+    state = spmd.active()
+    return (isinstance(experts["gate"]["w"], QTensor) and state is not None
+            and ep_divisible(e, c, state.mesh, "model", _ep_cap_axes(state.mesh, c)))
+
+
 def _expert_ffn(experts, xb: torch.Tensor, path: str, ctx: QuantCtx) -> torch.Tensor:
-    """gate / up / down over the dispatched (E, C, d) buffer."""
+    """gate / up / down over the dispatched (E, C, d) buffer; expert-
+    parallel on a mesh that splits the experts (the result then comes back
+    whole, in the buffer's dtype)."""
+    state = spmd.active()
+    if state is not None and state.layout(f"{path}/experts/gate") == -3:
+        if not _use_ep(experts, xb.shape[0], xb.shape[1], ctx):
+            raise NotImplementedError(f"experts split over model={state.model}, a capacity of {xb.shape[1]} it does "
+                                      f"not divide (the reference's ep_divisible)")
+
+        def site_kw(name):
+            site = f"{path}/experts/{name}"
+            prec = ctx.resolve(site)
+            return {"act_bits": prec.act_bits if prec else 8, "act_exponent": ctx.act_exponent(site)}
+
+        return expert_ffn_ep({n: experts[n]["w"] for n in ("gate", "up", "down")}, xb, mesh=state.mesh,
+                             backend=ctx.backend, site_kwargs={n: site_kw(n) for n in ("gate", "up", "down")})
+
     def em(name, v):
         return _expert_matmul(experts[name]["w"], v, f"{path}/experts/{name}", ctx)
 
@@ -146,6 +200,18 @@ def moe_layer(p, x: torch.Tensor, path: str, cfg, ctx: QuantCtx) -> torch.Tensor
     """x (B, S, d): the sequence in chunks of about ``moe_chunk_tokens``
     tokens (the reference's sequence-aligned chunking; capacity is per
     chunk), then arctic's dense residual MLP beside the experts."""
+    state = spmd.active()
+    if state is not None and state.batch_sharded:  # route over the whole batch
+        out = spmd.local_rows(_experts(p, spmd.gather_batch(x, state), path, cfg, ctx), state,
+                              x.shape[0] * state.mesh.axis_size(state.batch_axes))
+    else:
+        out = _experts(p, x, path, cfg, ctx)
+    if "residual_mlp" in p:
+        out = out + layers.mlp(p["residual_mlp"], x, f"{path}/residual_mlp", ctx)
+    return out
+
+
+def _experts(p, x: torch.Tensor, path: str, cfg, ctx: QuantCtx) -> torch.Tensor:
     b, s, d = x.shape
     n_chunks = max(1, b * s // max(cfg.moe_chunk_tokens, 1))
     while s % n_chunks:
@@ -155,10 +221,7 @@ def moe_layer(p, x: torch.Tensor, path: str, cfg, ctx: QuantCtx) -> torch.Tensor
     outs = [layers.maybe_remat(n_chunks > 1, _dispatch_chunk, p, x[:, i * sc:(i + 1) * sc].reshape(b * sc, d), path,
                                cfg, ctx).reshape(b, sc, d)
             for i in range(n_chunks)]
-    out = (outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)).to(x.dtype)
-    if "residual_mlp" in p:
-        out = out + layers.mlp(p["residual_mlp"], x, f"{path}/residual_mlp", ctx)
-    return out
+    return (outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)).to(x.dtype)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, top_ids: torch.Tensor, n_experts: int) -> torch.Tensor:

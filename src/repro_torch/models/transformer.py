@@ -10,6 +10,10 @@ each block recomputed in the backward pass under ``cfg.remat``.  The
 KV cache keeps the reference's stacked (L, B, T, ...) leaves; layer i
 works on the contiguous view ``cache[n][i]``, written in place.
 
+On a mesh (``models/spmd.py``) the block's activations stay replicated
+within the model group: the sites, the embedding, attention and the MoE
+layer place their collectives themselves, so this file runs unchanged.
+
 Serving entry points: ``prefill`` (a whole prompt at positions [0, S)),
 ``prefill_chunk`` (one chunk at [start, start + S) attending over the whole
 cache, so earlier chunks stay visible) and ``decode_step`` (one token per

@@ -20,7 +20,10 @@ one site at a time without ever holding the whole float tree.
 ``save_artifact`` / ``load_artifact`` make the quantized model an on-disk
 artifact in the reference's format (``training/checkpoint.py``): packed
 QTensors, sha256 per payload, the plan with its calibrated exponents --
-quantize once, cold-start many times with no float weights.
+quantize once, cold-start many times with no float weights.  With
+``mesh=`` the payloads write as shard files under the serving rules
+(``parallel.sharding.qtensor_shardings``), and a read gives one rank its
+own slice of every payload.
 """
 from __future__ import annotations
 
@@ -36,9 +39,6 @@ from repro_torch.core.quantizer import TERNARY_PER_WORD
 from repro_torch.quant.formats import quantize_weights
 from repro_torch.quant.plan import QuantCtx, QuantPlan, compile_policy, is_projection_site, site_subpath
 from repro_torch.training import checkpoint as ckpt
-
-MESH_STEP = "sharded artifacts wait for multi-GPU serving (ROADMAP Queue A step 10)"
-
 
 def _record(store, site: str, max_abs: float, msq: float) -> None:
     """Accumulate one batch's stats into a {site: entry} mapping."""
@@ -179,6 +179,7 @@ class Artifact:
     extra: Dict[str, Any]
     step: int
     path: str
+    shardings: Any = None  # the spec tree of a read on a mesh (over the stacked tree)
 
 
 def save_artifact(artifact_dir: str, params: Any, plan: Optional[QuantPlan], *,
@@ -187,25 +188,38 @@ def save_artifact(artifact_dir: str, params: Any, plan: Optional[QuantPlan], *,
     payloads, sha256 each, step-atomic publish, the plan in its
     ``quant_plan`` section).  ``extra`` is free producer metadata; pass the
     serialized ArchConfig under ``"arch_config"`` so serving can cold-start
-    from the directory alone."""
+    from the directory alone.  With ``mesh`` (any mesh the rules take, a
+    plain axis -> size dict included) every payload the serving rules split
+    is written as its shard files, the reference's layout byte for byte."""
+    shardings = None
     if mesh is not None:
-        raise NotImplementedError(MESH_STEP)
+        from repro_torch.parallel.sharding import qtensor_shardings
+
+        shardings = qtensor_shardings(ckpt.stacked_shapes(params), mesh, plan)
     meta = dict(extra or {})
     meta.setdefault("kind", "quant_artifact")
-    return ckpt.save(artifact_dir, step, params, extra=meta, plan=plan)
+    return ckpt.save(artifact_dir, step, params, extra=meta, plan=plan, shardings=shardings, mesh=mesh)
 
 
 def load_artifact(artifact_dir: str, *, mesh: Any = None, device=None) -> Artifact:
     """The newest intact artifact in ``artifact_dir``, rebuilt from its
     verified manifest alone onto ``device`` (the card unless ``"cpu"``):
     corrupt steps are skipped for older intact ones; none intact raises
-    IOError."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_STEP)
+    IOError.  With ``mesh`` (a ``parallel.collectives.Mesh``, live or
+    ``Mesh.local``) the serving rules run on the manifest's abstract tree
+    and every leaf is that rank's slice: its own shard files when the
+    artifact was written for the same layout, the joined payload sliced
+    otherwise."""
     # verify once (every payload hashed), then thread the manifest through
     step, manifest = ckpt.latest_intact(artifact_dir)
     if step is None:
         raise IOError(f"no intact quantized artifact under {artifact_dir!r}")
     d = ckpt.step_dir(artifact_dir, step)
-    return Artifact(params=ckpt.restore_tree(d, manifest=manifest, device=device),
-                    plan=ckpt.load_plan(d, manifest=manifest), extra=manifest.get("extra", {}), step=step, path=d)
+    plan = ckpt.load_plan(d, manifest=manifest)
+    shardings = None
+    if mesh is not None:
+        from repro_torch.parallel.sharding import qtensor_shardings
+
+        shardings = qtensor_shardings(ckpt.tree_shapes(manifest), mesh, plan)
+    return Artifact(params=ckpt.restore_tree(d, manifest=manifest, device=device, shardings=shardings, mesh=mesh),
+                    plan=plan, extra=manifest.get("extra", {}), step=step, path=d, shardings=shardings)

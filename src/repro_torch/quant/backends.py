@@ -13,6 +13,11 @@
                format without kernels (ttq) raises here, as the
                reference's ``pallas`` does.
   * ``auto`` : ``cuda`` for a CUDA tensor, ``ref`` for a CPU tensor.
+
+``ep_divisible`` and ``expert_ffn_ep`` are the MoE expert FFN under expert
+parallelism on one rank of a mesh (``models/moe.py``): the rank's experts
+over its slice of the whole capacity buffer, on either backend, the
+result all-gathered over the expert axis.
 """
 from __future__ import annotations
 
@@ -135,3 +140,47 @@ def qdense(
             out = out + bias.to(torch.float32)
         out = apply_act(out, act)
     return out.reshape(*lead, qt.n)
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism
+# ---------------------------------------------------------------------------
+def ep_divisible(e: int, c: int, mesh, ep_axis: str = "model", cap_axes: Tuple[str, ...] = ()) -> bool:
+    """Can (E, C, d) expert buffers run expert-parallel on ``mesh``?  The
+    reference's rule: E divisible by the expert axis, and C by every axis
+    the reference shards it over."""
+    from repro_torch.parallel.sharding import mesh_sizes
+
+    sizes = mesh_sizes(mesh) if mesh is not None else {}
+    if ep_axis not in sizes:
+        return False
+    ep = cap = sizes[ep_axis]
+    for a in cap_axes:
+        cap *= sizes[a]
+    return ep > 1 and e % ep == 0 and c % cap == 0
+
+
+def expert_ffn_ep(experts, x: torch.Tensor, *, mesh, ep_axis: str = "model", backend: str = "auto",
+                  site_kwargs=None) -> torch.Tensor:
+    """The MoE expert FFN under expert parallelism on one rank: ``experts``
+    {"gate", "up", "down"} hold the rank's E / ep experts (their (E / ep,)
+    exponents included), ``x`` the whole (E, C, d) capacity buffer, as every
+    rank of the expert group holds it.  The rank runs its experts' slice
+    through the expert ``qmatmul`` (one ``quantize_rows`` and one packed
+    launch a site on ``cuda``; silu between gate and up, h in float32 into
+    down, as the single-device composition), casts to ``x``'s dtype and
+    all-gathers the (E, C, d) result over ``ep_axis``.  ``site_kwargs``:
+    per-site ``act_bits`` / ``act_exponent`` from the plan."""
+    from repro_torch.parallel.collectives import all_gather
+
+    el = experts["gate"].experts
+    i = mesh.index(ep_axis)
+    xl = x[i * el:(i + 1) * el]
+    sites = site_kwargs or {}
+
+    def site(name, v):
+        return qmatmul(v, experts[name], backend=backend, **sites.get(name, {}))
+
+    h = apply_act(site("gate", xl), "silu")
+    h = h * site("up", xl)
+    return all_gather(site("down", h).to(x.dtype), mesh, ep_axis, 0)

@@ -52,6 +52,12 @@ Fault tolerance, as the reference's:
 
 The engines read time through ``self._clock`` (``time.monotonic``), so a
 caller may drive them on a clock of its own.
+
+``mesh=`` (a live ``parallel.collectives.Mesh``) serves the dense and MoE
+families across the mesh's ranks, one engine a rank (``models/spmd.py``):
+each holds its shards of the params and of the decode cache, every rank
+runs this same host loop -- scheduler, health, seeded faults, sampler --
+on rank 0's clock, and all reach the same tokens.
 """
 from __future__ import annotations
 
@@ -117,7 +123,10 @@ class _EngineBase:
     def __init__(self, api, params: Any, n_slots: int = 4, max_len: int = 256,
                  sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
                  admission: AdmissionConfig = AdmissionConfig(), health: HealthConfig = HealthConfig(),
-                 faults: Optional[FaultInjector] = None):
+                 faults: Optional[FaultInjector] = None, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            api, params = self._install_mesh(api, params)
         self.api = api
         self.params = params
         self.n_slots = n_slots
@@ -144,20 +153,34 @@ class _EngineBase:
         self.queue: Deque[Request] = deque()
         self._tick = 0
         self._tokens = 0  # tokens generated (sampled into outputs)
-        self._clock = time.monotonic
+        # one clock on every rank of a mesh: they take the same branches and reach the same collectives
+        self._clock = mesh.clock if mesh is not None and mesh.size > 1 else time.monotonic
         self._lat = LatencyStats()
         self._zero_prefix = None  # lazy fresh B=1 cache (slot clearing)
         self._poison_prefix = None  # lazy NaN-filled B=1 cache (chaos kv_corrupt)
 
+    def _install_mesh(self, api, params):
+        """``self.mesh`` as the serving layout (``models/spmd.py``): the
+        params to this rank's shards (a whole tree is sliced, a rank-local
+        one read from a sharded artifact is taken as it is), and the api's
+        serving calls wrapped so each runs under the mesh -- the ambient
+        mesh is scoped per call, so engines on different meshes coexist --
+        with its caches placed per ``cache_shardings``."""
+        from repro_torch.models import spmd  # lazy: serving stays model-agnostic
+
+        params, state = spmd.install(params, self.mesh, api.cfg)
+        return spmd.shard_api(api, state), params
+
     @classmethod
-    def from_artifact(cls, artifact_dir: str, *, device=None, **kwargs):
+    def from_artifact(cls, artifact_dir: str, *, device=None, mesh=None, **kwargs):
         """Cold-start an engine from a packed artifact (``load_servable``):
         the QTensor tree under the artifact's plan, on ``device`` -- no
-        float weights, no calibration, no re-quantization."""
+        float weights, no calibration, no re-quantization.  With ``mesh``
+        each rank reads its own shards."""
         from repro_torch.models.model_zoo import load_servable  # lazy: serving stays model-agnostic
 
-        api, qparams, _ = load_servable(artifact_dir, device=device)
-        return cls(api, qparams, **kwargs)
+        api, qparams, _ = load_servable(artifact_dir, mesh=mesh, device=device)
+        return cls(api, qparams, mesh=mesh, **kwargs)
 
     # -- client API --------------------------------------------------------
     def submit(self, req: Request, *, strict: bool = False) -> Request:
@@ -266,6 +289,7 @@ class _EngineBase:
             "tokens": self._tokens,
             "admitted_tick": [r.admitted_tick if r is not None else None for r in self.slot_req],
             "positions": self.slot_pos.tolist(),
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
             # per-request percentiles over finished requests (seconds)
             "latency": self._lat.summary(),
             # watchdog tick timing, overload mode and the event counters

@@ -39,9 +39,20 @@ with its ``{"q", "e"}`` DFP-8 moments is written under the reference's
 paths and either package restores the other's; ``quant_state`` (a TTQ /
 INQ schedule record) rides in the manifest (``load_quant_state``).
 
-Sharded payloads (``payload.shard{k}.npy`` with their ``index``) written by
-the reference on a mesh are joined on the host.  Writing them, the mesh-aware
-restore and ``tree_shapes`` wait for ROADMAP Queue A step 10.
+Sharded payloads (the reference's manifest-v2 shard layout): ``save(...,
+shardings=, mesh=)`` writes every payload a spec splits as one
+``<payload>.shard{k}.npy`` a unique shard (replicated axes deduplicated,
+in first-seen rank order, row-major over the mesh as jax orders its
+devices), each entry with its ``file``, ``sha256`` and ``index`` (the
+shard's ``[start, stop)`` per dimension), the payload with its ``shape`` and
+``dtype``.  ``restore_tree(..., shardings=, mesh=)`` gives one rank its own
+slice of every payload: the shard file whose index is its slice when the
+layout matches, else (an elastic restore on another mesh) the shards joined
+on the host and sliced.  Without a mesh the shards are joined.  A missing or
+corrupt shard, or shards that do not tile their array, fail verification.
+``tree_shapes`` describes a checkpoint from its manifest alone (``meta``
+tensors), which is what the sharding rules run against before a restore;
+``stacked_shapes`` is the same description of an in-memory tree.
 """
 from __future__ import annotations
 
@@ -322,8 +333,36 @@ def _file_sha256(fpath: str) -> str:
     return _read_retry(_sha256_once, fpath)
 
 
-def _write_payload(d: str, name: str, arr: np.ndarray) -> Dict[str, Any]:
+Box = Tuple[Tuple[int, int], ...]
+
+
+def _shard_indices(spec, shape, sizes: Dict[str, int]) -> List[Box]:
+    """The unique shard slices of ``shape`` under ``spec`` in first-seen
+    rank order (ranks row-major over ``sizes``)."""
+    from repro_torch.parallel.collectives import Mesh
+
+    seen: List[Box] = []
+    for rank in range(Mesh.local(sizes).size):
+        box = Mesh.local(sizes, rank).box(spec, shape)
+        if box not in seen:
+            seen.append(box)
+    return seen
+
+
+def _write_payload(d: str, name: str, arr: np.ndarray, spec=None, sizes: Optional[Dict[str, int]] = None
+                   ) -> Dict[str, Any]:
+    """One payload; with a ``spec`` that splits it over ``sizes``, one
+    ``.shard{k}.npy`` a unique shard, each with its own sha256."""
     fname = _payload_name(name)
+    indices = _shard_indices(spec, arr.shape, sizes) if spec is not None else []
+    if len(indices) > 1:
+        shards = []
+        for k, index in enumerate(indices):
+            sname = f"{fname[:-len('.npy')]}.shard{k}.npy"
+            spath = os.path.join(d, sname)
+            _save_npy(spath, arr[tuple(slice(a, b) for a, b in index)])
+            shards.append({"file": sname, "sha256": _file_sha256(spath), "index": [list(p) for p in index]})
+        return {"shards": shards, "shape": list(arr.shape), "dtype": _dtype_name(arr)}
     fpath = os.path.join(d, fname)
     _save_npy(fpath, arr)
     return {"file": fname, "sha256": _file_sha256(fpath), "shape": list(arr.shape), "dtype": _dtype_name(arr)}
@@ -339,13 +378,20 @@ def _plan_json(plan: Any) -> Optional[str]:
 # Save.
 # ---------------------------------------------------------------------------
 def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None, plan: Any = None,
-         quant_state: Optional[Dict] = None) -> str:
+         quant_state: Optional[Dict] = None, shardings: Any = None, mesh: Any = None) -> str:
     """Atomically persist ``tree`` (tensors, QTensors, lists of per-layer
     trees) at ``step``; returns the step directory.  Plain leaves go to the
     manifest's ``arrays``, codec leaves to ``nodes``; ``plan`` (a
     ``QuantPlan`` or its JSON) to ``quant_plan.json``; ``quant_state`` (a
     JSON-safe schedule record, ``QuantState.to_meta()``) to the manifest's
-    ``quant_state`` section."""
+    ``quant_state`` section.  ``shardings`` (a spec tree over the stacked
+    tree, ``parallel.sharding.qtensor_shardings(stacked_shapes(tree), mesh)``)
+    and ``mesh`` (any mesh the rules take) write split payloads as shard
+    files."""
+    from repro_torch.parallel.sharding import flat_specs, mesh_sizes
+
+    specs = flat_specs(shardings) if shardings is not None else {}
+    sizes = mesh_sizes(mesh) if mesh is not None else None
     os.makedirs(ckpt_dir, exist_ok=True)
     final = step_dir(ckpt_dir, step)
     tmp = final + ".tmp"
@@ -358,14 +404,16 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None, plan
     }
     for name, leaf in _flat_with_paths(tree):
         codec = _codec_for(leaf)
+        sh = specs.get(name)
         if codec is None:
-            manifest["arrays"][name] = _write_payload(tmp, name, _to_numpy(_stack(leaf)))
+            manifest["arrays"][name] = _write_payload(tmp, name, _to_numpy(_stack(leaf)), sh, sizes)
         else:
             payloads, meta = codec.encode(leaf)
             manifest["nodes"][name] = {
                 "codec": codec.name,
                 "meta": meta,
-                "arrays": {field: _write_payload(tmp, f"{name}/{field}", arr) for field, arr in payloads.items()},
+                "arrays": {field: _write_payload(tmp, f"{name}/{field}", arr, getattr(sh, field, None), sizes)
+                           for field, arr in payloads.items()},
             }
     blob = _plan_json(plan)
     if blob is not None:
@@ -500,21 +548,95 @@ def _insert_by_path(out: Dict[str, Any], name: str, val: Any) -> None:
     node[parts[-1]] = val
 
 
-def restore_tree(d: str, manifest: Optional[Dict] = None, device=None) -> Dict[str, Any]:
+def _load_local(d: str, meta: Dict[str, Any], spec, mesh, device: torch.device) -> torch.Tensor:
+    """This rank's slice of one payload under ``spec``: its own shard file
+    when the saved layout has that slice, else the payload joined on the
+    host (the elastic restore) and sliced."""
+    shape = tuple(meta["shape"])
+    box = mesh.box(spec, shape)
+    if "shards" in meta:
+        for s in meta["shards"]:
+            if tuple(tuple(p) for p in s["index"]) == box:
+                return _to_torch(_np_load(os.path.join(d, s["file"])), meta["dtype"], device)
+    whole = _load_payload(d, meta, torch.device("cpu"))
+    return whole[tuple(slice(a, b) for a, b in box)].contiguous().to(device)
+
+
+def _decode_local(d: str, node: Dict[str, Any], specs, mesh, device: torch.device) -> Any:
+    """A codec node's fields, each this rank's slice under ``specs`` (its
+    per-field specs); a QTensor's logical shape becomes its slice's."""
+    codec = get_codec(node["codec"])
+    fields = {f: _load_local(d, meta, getattr(specs, f), mesh, device) for f, meta in node["arrays"].items()}
+    val = codec.decode(fields, node["meta"])
+    if isinstance(val, QTensor):
+        k_ax, n_ax = specs.packed[-2:]
+        val = dataclasses.replace(val, shape=(val.shape[0] // mesh.axis_size(k_ax), val.shape[1] // mesh.axis_size(n_ax)))
+    return val
+
+
+def restore_tree(d: str, manifest: Optional[Dict] = None, device=None, shardings: Any = None,
+                 mesh: Any = None) -> Dict[str, Any]:
     """Template-free restore of one step directory: the nested dict of the
     manifest's paths, stacked layers as saved (``unstack`` splits them),
     QTensors still packed.  ``manifest``: an already-verified one (skips
-    re-hashing)."""
+    re-hashing).  ``shardings`` (a spec tree over ``tree_shapes``) and
+    ``mesh`` (a ``collectives.Mesh``, live or ``Mesh.local``): every leaf
+    is this rank's slice."""
     dev = resolve_device(device)
     if manifest is None:
         manifest = _verify(d)
     if manifest is None:
         raise IOError(f"checkpoint {d} missing or corrupt")
+    from repro_torch.parallel.sharding import flat_specs
+
+    specs = flat_specs(shardings) if shardings is not None else {}
     out: Dict[str, Any] = {}
     for name, meta in manifest["arrays"].items():
-        _insert_by_path(out, name, _load_payload(d, meta, dev))
+        sh = specs.get(name)
+        _insert_by_path(out, name, _load_payload(d, meta, dev) if sh is None else _load_local(d, meta, sh, mesh, dev))
     for name, node in manifest.get("nodes", {}).items():
-        _insert_by_path(out, name, _decode_node(d, node, dev))
+        sh = specs.get(name)
+        _insert_by_path(out, name, _decode_node(d, node, dev) if sh is None else _decode_local(d, node, sh, mesh, dev))
+    return out
+
+
+def _meta_tensor(shape, dtype_name: str) -> torch.Tensor:
+    """A shape-only tensor (``meta`` device) of a manifest dtype name."""
+    arr = np.empty(0, _np_dtype(dtype_name))
+    return torch.empty(tuple(shape), dtype=_to_torch(arr, dtype_name, torch.device("cpu")).dtype, device="meta")
+
+
+def tree_shapes(manifest: Dict[str, Any]) -> Dict[str, Any]:
+    """The abstract tree of one checkpoint from its manifest alone, no
+    payload read: ``meta`` tensors for plain arrays, QTensors over ``meta``
+    fields (stacked layers as saved).  What the sharding rules run against
+    before a mesh-aware restore."""
+    out: Dict[str, Any] = {}
+    for name, meta in manifest["arrays"].items():
+        _insert_by_path(out, name, _meta_tensor(meta["shape"], meta["dtype"]))
+    for name, node in manifest.get("nodes", {}).items():
+        fields = {f: _meta_tensor(m["shape"], m["dtype"]) for f, m in node["arrays"].items()}
+        _insert_by_path(out, name, get_codec(node["codec"]).decode(fields, node["meta"]))
+    return out
+
+
+def _meta_like(t, lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    return torch.empty(lead + tuple(t.shape), dtype=t.dtype, device="meta")
+
+
+def stacked_shapes(tree: Any) -> Dict[str, Any]:
+    """The abstract tree ``save`` writes for ``tree`` (lists of per-layer
+    trees stacked on a leading axis), as ``tree_shapes`` reads it back."""
+    out: Dict[str, Any] = {}
+    for name, leaf in _flat_with_paths(tree):
+        first = leaf[0] if isinstance(leaf, Stacked) else leaf
+        lead = (len(leaf),) if isinstance(leaf, Stacked) else ()
+        if isinstance(first, QTensor):
+            val = dataclasses.replace(first, packed=_meta_like(first.packed, lead),
+                                      scale_m=_meta_like(first.scale_m, lead), scale_e=_meta_like(first.scale_e, lead))
+        else:
+            val = _meta_like(torch.as_tensor(first), lead)
+        _insert_by_path(out, name, val)
     return out
 
 

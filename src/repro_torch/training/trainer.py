@@ -9,8 +9,9 @@ shell: periodic step-atomic checkpoints (the plan and the ``QuantState``
 ride along), resume from the newest intact one, and metrics that stay on
 the device until a flush fetches a whole window in one transfer.
 
-One device: ``mesh=`` and ``param_shardings=`` wait for ROADMAP Queue A
-step 10 and raise.  No ``torch.compile``: the step runs eagerly.
+One device: ``mesh=`` and ``param_shardings=`` (the sharded trainer: the
+``"train"`` rules, FSDP, ``opt_shardings``) wait for ROADMAP Queue A step
+10.2 (A10.2) and raise.  No ``torch.compile``: the step runs eagerly.
 """
 from __future__ import annotations
 
@@ -119,7 +120,7 @@ class Trainer:
                  batch_shardings_fn: Optional[Callable] = None, plan=None, quant_state=None):
         if mesh is not None or param_shardings is not None or batch_shardings_fn is not None:
             raise NotImplementedError("a sharded trainer (mesh= / param_shardings=) waits for ROADMAP Queue A "
-                                      "step 10; the port trains on one device")
+                                      "step 10.2 (A10.2); the port trains on one device")
         self.tcfg = tcfg
         self.plan = plan  # the compiled QuantPlan a QAT run trains under
         self.quant_state = quant_state  # QuantState: the TTQ / INQ schedule record

@@ -534,14 +534,6 @@ def test_reference_sharded_artifact_joins_without_a_mesh(tmp_path):
 # ---------------------------------------------------------------------------
 # What the port does not do fails loud.
 # ---------------------------------------------------------------------------
-def test_mesh_waits_for_multi_gpu(ternary, tmp_path):
-    qparams, plan, _ = ternary
-    with pytest.raises(NotImplementedError, match="Queue A step 10"):
-        save_artifact(str(tmp_path), qparams, plan, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A step 10"):
-        load_artifact(str(tmp_path), mesh=object())
-
-
 def test_no_intact_step_raises(tmp_path):
     with pytest.raises(IOError, match="no intact quantized artifact"):
         load_artifact(str(tmp_path), device="cpu")

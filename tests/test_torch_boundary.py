@@ -40,6 +40,8 @@ def test_package_imports_with_jax_blocked():
         "import repro_torch.training.checkpoint, repro_torch.core.calibration, repro_torch.core.stats\n"
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.training.optimizer, repro_torch.training.trainer, repro_torch.training.data\n"
+        "import repro_torch.parallel, repro_torch.parallel.sharding, repro_torch.parallel.collectives\n"
+        "import repro_torch.launch.mesh, repro_torch.models.spmd\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

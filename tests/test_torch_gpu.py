@@ -1161,3 +1161,89 @@ def test_remat_step_matches_the_step_without_remat(dev, arch):
     (l0, g0), (l1, g1) = out
     assert torch.equal(l0, l1)
     assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+# ---------------------------------------------------------------------------
+# grok-1-314b's sites at their published widths split over model = 2 and 4
+# (models/spmd.py): a rank's launch on its columns, experts or kv heads is
+# bit for bit the whole site's slice, and its plain version.
+# ---------------------------------------------------------------------------
+GROK_SHARDED_SITES = [  # (decode, K, N of the whole site, ranks): wq, wk / wv, the int8 lm_head, the router
+    ("ternary", 6144, 6144, 4), ("ternary", 6144, 1024, 4), ("int8", 6144, 131072, 4), ("int8", 6144, 8, 2),
+]
+
+
+def _random_site(decode, k, n, gen, dev, lead=()):
+    """Random packed words (or int8 codes), scale rows and an exponent."""
+    if decode == "int8":
+        packed = torch.randint(-127, 128, lead + (k, n), generator=gen, device=dev, dtype=torch.int8)
+    else:
+        packed = torch.randint(-2**31, 2**31 - 1, lead + (k // 16, n), generator=gen, device=dev, dtype=torch.int32)
+    scale_m = torch.randint(-127, 128, lead + (k // 64, n), generator=gen, device=dev, dtype=torch.int8)
+    scale_e = torch.full(lead, -9, dtype=torch.int32, device=dev)
+    return packed, scale_m, scale_e
+
+
+@pytest.mark.parametrize("decode,k,n,ranks", GROK_SHARDED_SITES)
+@pytest.mark.parametrize("m", [1, 4, 17])
+def test_grok_site_columns_equal_the_whole_site(dev, decode, k, n, ranks, m):
+    gen = torch.Generator(device=dev).manual_seed(n + m)
+    packed, scale_m, scale_e = _random_site(decode, k, n, gen, dev)
+    x = _edge_x(m, k, gen, dev, torch.bfloat16)
+    entry = ternary_matmul_fused if decode == "ternary" else int8_matmul_fused
+    whole = entry(x, packed, scale_m, scale_e, group=64)
+    for parts in (2, ranks):
+        cols = n // parts
+        for r in (0, parts - 1):
+            p, s = packed[:, r * cols:(r + 1) * cols].contiguous(), scale_m[:, r * cols:(r + 1) * cols].contiguous()
+            got = entry(x, p, s, scale_e, group=64)
+            want = fused_qmm_ref(x, p, s, scale_e, decode=decode, group=64)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert torch.equal(got.view(torch.int32), whole[:, r * cols:(r + 1) * cols].contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("k,n", [(6144, 32768), (32768, 6144)])
+def test_grok_experts_split_equal_the_whole_stack(dev, k, n):
+    """E 8 split 4 and 2 a rank (gate / up, down), C 8 over every expert."""
+    from repro_torch.kernels.packed_qmm import packed_qmm_ref
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(k)
+    packed, scale_m, _ = _random_site("ternary", k, n, gen, dev, (8,))
+    xq = _routed_x(8, 8, k, list(range(8)), gen, dev)
+    whole = ternary_matmul(xq, packed, scale_m, group=64)
+    for el in (4, 2):
+        for r in (0, 8 // el - 1):
+            sl = slice(r * el, (r + 1) * el)
+            got = ternary_matmul(xq[sl].contiguous(), packed[sl].contiguous(), scale_m[sl].contiguous(), group=64)
+            want = packed_qmm_ref(xq[sl], packed[sl], scale_m[sl], decode="ternary", group=64)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert torch.equal(got.view(torch.int32), whole[sl].contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("fmt", ["kv_bf16", "kv_int8", "kv_mx"])
+@pytest.mark.parametrize("s", [1, 64])
+def test_grok_kv_heads_split_equal_the_whole_call(dev, fmt, s):
+    """48 q heads over 8 kv heads (G 6, hd 128) split 4 and 2 kv heads a
+    rank: a decode planned for the whole call's pairs (``plan_pairs``) and
+    a prefill chunk equal the whole call's heads bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(s + len(fmt))
+    b, t, kh, g, hd = 4, 1024, 8, 6, 128
+    c = _packed_cache(fmt, b, t, kh, hd, gen, dev)
+    q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev)
+    start = torch.tensor([[t - s - 5], [0], [300], [t - s]], dtype=torch.int32, device=dev)
+    win = torch.tensor([[2**30]], dtype=torch.int32, device=dev)
+    whole = flash_attend(q, c["k"], c["v"], c.get("ke"), c.get("ve"), start, start + s, win, fmt=fmt)
+    for per in (4, 2):
+        for r in (0, kh // per - 1):
+            hs = slice(r * per, (r + 1) * per)
+            part = {name: leaf[:, :, hs].contiguous() for name, leaf in c.items()}
+            args = (q[:, :, hs].contiguous(), part["k"], part["v"], part.get("ke"), part.get("ve"), start, start + s,
+                    win)
+            got = flash_attend(*args, fmt=fmt, plan_pairs=b * kh)
+            want = flash_attend_ref(*args, fmt=fmt)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+            assert torch.equal(got, whole[:, :, hs])

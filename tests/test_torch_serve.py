@@ -82,15 +82,19 @@ def test_deadline_and_queue_flags_reach_the_engine(capsys):
     assert all(r.deadline_ms == 1e9 for r in run.done)
 
 
-@pytest.mark.parametrize("flag,value,step", [
-    ("--mesh", "dp=2", "Queue A step 10"), ("--compile-cache", "x", "XLA's persistent compilation cache"),
+@pytest.mark.parametrize("flag,value,said", [
+    ("--mesh", "dp=2", ("--mesh dp=2 has 2 ranks but WORLD_SIZE is 1", "torch.distributed.run --nproc_per_node 2")),
+    ("--compile-cache", "x", ("--compile-cache is not ported yet", "XLA's persistent compilation cache")),
 ])
-def test_unported_flags_exit_naming_their_step(capsys, flag, value, step):
+def test_unported_flags_exit_naming_their_step(capsys, flag, value, said, monkeypatch):
+    """--compile-cache names why it is refused; --mesh refuses a mesh whose
+    size is not the launch's WORLD_SIZE, naming both."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(SystemExit) as exc:
         serve.main(BASE + [flag, value])
     assert exc.value.code != 0
     err = capsys.readouterr().err
-    assert f"{flag} is not ported yet" in err and step in err
+    assert all(s in err for s in said), err
 
 
 def test_plan_json_is_the_reference_plan(capsys, tmp_path):

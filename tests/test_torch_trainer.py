@@ -43,7 +43,7 @@ def test_train_defers_host_syncs(tmp_path):
 
 def test_trainer_refuses_a_mesh():
     cfg, api, params, _ = tiny()
-    with pytest.raises(NotImplementedError, match="Queue A step 10"):
+    with pytest.raises(NotImplementedError, match=r"Queue A step 10\.2 \(A10\.2\)"):
         Trainer(api.train_loss, params, TrainConfig(), mesh=object())
 
 
